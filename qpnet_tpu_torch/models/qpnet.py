@@ -1,0 +1,261 @@
+"""Quasi-Periodic WaveNet in PyTorch: parameters and the teacher-forced
+forward, with the same math, layout and parameter keys as
+`qpnet_tpu/models/qpnet.py`.
+
+Parameters are a plain tree: a dict of tensors whose `fixed` and `adaptive`
+entries are lists of per-block dicts.  Activations are channels-last
+(B, T, C), so every 1x1 and k=2 convolution is a product on the last axis;
+sequences stay full-length and end-aligned, past samples shifted in with zero
+fill.
+
+Precision: compute_dtype=float32 is the parity mode.  compute_dtype=bfloat16
+rounds every product's operands to bf16, accumulates in f32, and stores the
+per-block activations in bf16, while the skip sum and the logits stay f32 —
+the JAX package's storage points.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from qpnet_tpu_torch.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  A CUDA device that is missing
+    raises: nothing falls back to the CPU unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return device
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def params_from_numpy(tree, device="cuda", dtype=torch.float32) -> Params:
+    """Carry a parameter tree of arrays (numpy, or anything `np.asarray`
+    takes, e.g. the JAX package's params) across to tensors on `device`."""
+    device = resolve_device(device)
+    return tree_map(
+        lambda a: torch.from_numpy(np.array(a, np.float32)).to(
+            device=device, dtype=dtype), tree)
+
+
+def params_to(params: Params, device) -> Params:
+    return tree_map(lambda t: t.to(device), params)
+
+
+# ---------------------------------------------------------------------------
+# initialization: Xavier-uniform over the reference convolution shapes
+# ---------------------------------------------------------------------------
+
+def _xavier(gen, shape, fan_in, fan_out, dtype, device):
+    bound = float(np.sqrt(6.0 / (fan_in + fan_out)))
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return (u * (2 * bound) - bound).to(dtype)
+
+
+def init_params(seed: int, cfg: ModelConfig, dtype=torch.float32,
+                device="cuda") -> Params:
+    """Random parameters from `seed` (an explicit torch.Generator on
+    `device`).  Bounds and shapes are those of the JAX package; the draws
+    are not, since the two generators differ."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    Q, A, R, S = cfg.n_quantize, cfg.n_aux, cfg.n_resch, cfg.n_skipch
+    k = cfg.kernel_size
+    if k != 2:
+        raise ValueError("kernel_size=2 is the only supported value")
+
+    def xav(shape, fan_in, fan_out):
+        return _xavier(gen, shape, fan_in, fan_out, dtype, device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def res_block(kind: str) -> Params:
+        # fixed stack: one k=2 conv per branch -> fan 2R/2R;
+        # adaptive stack: two k=1 convs per branch -> fan R/R
+        fan = 2 * R if kind == "fixed" else R
+        return {
+            "W_cur": torch.cat([xav((R, R), fan, fan) for _ in range(2)], 1),
+            "W_prev": torch.cat([xav((R, R), fan, fan) for _ in range(2)], 1),
+            "W_aux": torch.cat([xav((A, R), A, R) for _ in range(2)], 1),
+            "b_gate": zeros(2 * R),
+            "W_skip": xav((R, S), R, S),
+            "b_skip": zeros(S),
+            "W_res": xav((R, R), R, R),
+            "b_res": zeros(R),
+        }
+
+    causal_w = xav((2, Q, R), Q * k, R * k)
+    return {
+        "embed_prev": causal_w[0],
+        "embed_cur": causal_w[1],
+        "b_causal": zeros(R),
+        # the upsampler starts as exact frame repetition
+        "up_w": torch.ones((cfg.upsampling_factor,), dtype=dtype,
+                           device=device),
+        "up_b": zeros(),
+        "fixed": [res_block("fixed") for _ in cfg.dilationsF],
+        "adaptive": [res_block("adaptive") for _ in cfg.dilationsA],
+        "W_post1": xav((S, S), S, S),
+        "b_post1": zeros(S),
+        "W_post2": xav((S, Q), S, Q),
+        "b_post2": zeros(Q),
+    }
+
+
+def count_params(params: Params) -> int:
+    n = 0
+
+    def add(t):
+        nonlocal n
+        n += t.numel()
+    tree_map(add, params)
+    return n
+
+
+# ---------------------------------------------------------------------------
+# forward building blocks
+# ---------------------------------------------------------------------------
+
+def upsample_aux(params: Params, h: torch.Tensor, up: int) -> torch.Tensor:
+    """(B, F, A) frame-rate aux -> (B, F*up, A) sample rate: a learned
+    per-phase scale and a scalar bias."""
+    B, F_, A = h.shape
+    h_up = torch.repeat_interleave(h, up, dim=1)
+    phase = params["up_w"].repeat(F_)
+    return h_up * phase[None, :, None] + params["up_b"]
+
+
+def shift_time(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x[:, t-d] with zero fill for t<d (end-aligned causal shift)."""
+    if d == 0:
+        return x
+    out = torch.zeros_like(x)
+    out[:, d:] = x[:, : x.shape[1] - d]
+    return out
+
+
+def _gate(z: torch.Tensor, R: int) -> torch.Tensor:
+    return torch.sigmoid(z[..., :R]) * torch.tanh(z[..., R:])
+
+
+def _matmul(a, w, dtype, out_dtype=torch.float32):
+    """Product on the last axis with operands rounded to `dtype`, summed in
+    f32 and stored as `out_dtype`."""
+    return (a.to(dtype).float() @ w.to(dtype).float()).to(out_dtype)
+
+
+def _act_dtype(dtype):
+    """Activation storage type for a product type: f32 math stores f32,
+    bf16 math stores bf16."""
+    return torch.float32 if dtype == torch.float32 else dtype
+
+
+def fixed_block(p: Params, o: torch.Tensor, h_up: torch.Tensor, dil: int,
+                R: int, dtype, *, act_dtype=None):
+    """One fixed residual block; returns (o + res, skip)."""
+    act = act_dtype if act_dtype is not None else _act_dtype(dtype)
+    z = (_matmul(o, p["W_cur"], dtype, act)
+         + _matmul(shift_time(o, dil), p["W_prev"], dtype, act)
+         + _matmul(h_up, p["W_aux"], dtype, act)
+         + p["b_gate"].to(act))
+    g = _gate(z, R)
+    skip = _matmul(g, p["W_skip"], dtype) + p["b_skip"]
+    res = _matmul(g, p["W_res"], dtype, act) + p["b_res"].to(act)
+    return o + res, skip
+
+
+def adaptive_block(p: Params, o: torch.Tensor, h_up: torch.Tensor,
+                   r: torch.Tensor, R: int, dtype, *, act_dtype=None):
+    """One pitch-adaptive residual block.  r: (B, T) int look-back
+    round(d(t) * dilation); the gather index t - r is clipped to [0, T-1]."""
+    B, T, C = o.shape
+    act = act_dtype if act_dtype is not None else _act_dtype(dtype)
+    t = torch.arange(T, device=o.device)[None, :]
+    idx = torch.clamp(t - r, 0, T - 1).long()
+    past = torch.gather(o, 1, idx[..., None].expand(B, T, C))
+    z = (_matmul(o, p["W_cur"], dtype, act)
+         + _matmul(past, p["W_prev"], dtype, act)
+         + _matmul(h_up, p["W_aux"], dtype, act)
+         + p["b_gate"].to(act))
+    g = _gate(z, R)
+    skip = _matmul(g, p["W_skip"], dtype) + p["b_skip"]
+    res = _matmul(g, p["W_res"], dtype, act) + p["b_res"].to(act)
+    return o + res, skip
+
+
+def round_look_back(d: torch.Tensor, dil: int) -> torch.Tensor:
+    """round(d * dil), half to even, as an int32 look-back."""
+    return torch.round(d.float() * dil).to(torch.int32)
+
+
+def postprocess(params: Params, skip_sum: torch.Tensor, dtype) -> torch.Tensor:
+    u = F.relu(skip_sum)
+    u = F.relu(_matmul(u, params["W_post1"], dtype) + params["b_post1"])
+    return _matmul(u, params["W_post2"], dtype) + params["b_post2"]
+
+
+# ---------------------------------------------------------------------------
+# teacher-forced forward
+# ---------------------------------------------------------------------------
+
+def embed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Causal input layer: c[t] = E_cur[x[t]] + E_prev[x[t-1]] + b."""
+    x = x.long()
+    return (params["embed_cur"][x]
+            + shift_time(params["embed_prev"][x], 1)
+            + params["b_causal"])
+
+
+def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            h: Optional[torch.Tensor], d: torch.Tensor,
+            compute_dtype=torch.float32,
+            h_up: Optional[torch.Tensor] = None,
+            fixed_engine: str = "xla") -> torch.Tensor:
+    """Teacher-forced forward over a full window.
+
+    x: (B, T) int mu-law classes (end-aligned, history on the left);
+    h: (B, T // upsampling_factor, n_aux) standardized aux, ignored when a
+    sample-rate `h_up` (B, T, n_aux) is given; d: (B, T) dilation factors.
+    Returns (B, T, n_quantize) f32 logits; logits[:, t] predicts x[t+1].
+    """
+    if fixed_engine == "pallas":
+        raise NotImplementedError(
+            "the fused training kernel (K2, qpnet_tpu/ops/train_kernel.py) "
+            "is not ported yet: ROADMAP.md, Queue 2, K2")
+    if fixed_engine != "xla":
+        raise ValueError("fixed_engine should be 'xla' or 'pallas'")
+    R = cfg.n_resch
+    act = _act_dtype(compute_dtype)
+    if h_up is None:
+        h_up = upsample_aux(params, h, cfg.upsampling_factor)
+    h_up = h_up.to(act)
+    o = embed(params, x).to(act)
+    skip_sum = torch.zeros(o.shape[:2] + (cfg.n_skipch,),
+                           dtype=torch.float32, device=o.device)
+    for p, dil in zip(params["fixed"], cfg.dilationsF):
+        o, skip = fixed_block(p, o, h_up, dil, R, compute_dtype)
+        skip_sum = skip_sum + skip
+    for p, dil in zip(params["adaptive"], cfg.dilationsA):
+        o, skip = adaptive_block(p, o, h_up, round_look_back(d, dil), R,
+                                 compute_dtype)
+        skip_sum = skip_sum + skip
+    return postprocess(params, skip_sum, compute_dtype)
