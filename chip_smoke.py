@@ -14,7 +14,23 @@ Phases, each reported on its own line; any failure exits non-zero:
      batch) on utterances of 0.5-1.0 s with varying F0, sampling with seed
      100, to int16 wavs; K1 must have been launched;
   5. one K1 call at B=20, maxd 48, 4 frames: equal to its twin, timed
-     against the twin and its bound, and profiled by CUDA kernel.
+     against the twin and its bound, and profiled by CUDA kernel;
+  6. the training kernels (K2 forward and backward) against their twins at
+     the default network's full width, B=1, T=30030, with an F0 track in
+     80-300 Hz: f32 and bf16, fixed layers only and with the adaptive
+     layers fused; every output within 1e-4 (f32) or 2e-2 (bf16) of the
+     twin's as max |d| / max |ref|, and the fixed-only backward
+     bit-identical when repeated;
+  7. the training main path: `train_loop` with the kernel engine, f32,
+     B=1, windows of the batcher over an in-memory corpus at 22,050 Hz,
+     4 steps; both K2 kernels launched, finite losses, checkpoint and loss
+     record written and read back; then one step's loss and gradients with
+     each engine from the same parameters and batch: losses within 1e-4,
+     and each gradient leaf of the kernel engine no farther from the
+     plain engine's f64 gradient than max(1e-3, twice the plain f32
+     engine's worst leaf), as max |d| / max |ref|;
+  8. times: K2 forward and backward per call (f32, bf16) beside their
+     twins and bounds, and the training step with each engine.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
@@ -31,8 +47,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
-BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
 FS = 22050
 FORCED_TOL = 2e-2            # |logit| difference, bf16 storage points
 AGREE_MIN = 0.85             # argmax/sampling agreement over 40 samples
@@ -47,19 +61,10 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"FAILED: {what}")
 
 
-def f0_track(rng, n_frames: int, lo=80.0, hi=300.0, unvoiced=0.1):
-    """A smooth random F0 contour in [lo, hi] Hz with unvoiced (0) runs."""
-    knots = rng.uniform(lo, hi, size=max(2, n_frames // 40 + 2))
-    f0 = np.interp(np.linspace(0, len(knots) - 1, n_frames),
-                   np.arange(len(knots)), knots)
-    uv = rng.random(n_frames) < unvoiced
-    f0[uv] = 0.0
-    return f0
-
-
 def make_inputs(rng, cfg, frames):
     """(x, h, n_samples, d) as the decode CLI builds them: one mu-law zero
     seed, standardized aux, frame-constant d from an F0 track."""
+    from qpnet_tpu_torch.bench import f0_track
     from qpnet_tpu_torch.ops import dilated_factor
     B, F = len(frames), max(frames)
     up = cfg.upsampling_factor
@@ -68,24 +73,10 @@ def make_inputs(rng, cfg, frames):
     for i, f in enumerate(frames):
         h[i, :f] = rng.normal(size=(f, cfg.n_aux))
         d[i, :f * up] = np.repeat(
-            dilated_factor(f0_track(rng, f), FS, cfg.dense_factor), up)
+            dilated_factor(f0_track(rng, f, unvoiced=0.1), FS,
+                           cfg.dense_factor), up)
     x = np.full((B, 1), cfg.n_quantize // 2, np.int32)
     return x, h, [f * up - 1 for f in frames], d
-
-
-def cuda_ms(fn, reps: int):
-    """(ms per call of fn after a warm-up call, fn's last result)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps, out
 
 
 def main() -> int:
@@ -98,11 +89,13 @@ def main() -> int:
         from qpnet_tpu_torch.config import ModelConfig
         from qpnet_tpu_torch.ops import _build
         from qpnet_tpu_torch.ops import gen_kernel as K
+        from qpnet_tpu_torch.ops import train_kernel as TK
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
         return 2
-    check(not torch.backends.cuda.matmul.allow_tf32,
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
           "f32 products must not run in TF32")
 
     # 1. card
@@ -118,10 +111,12 @@ def main() -> int:
     with ThreadPoolExecutor(len(names)) as ex:
         libs = list(ex.map(lambda n: _build.build(n, verbose=True), names))
     K.build()
+    TK.build()
     phase("build", f"{len(libs)} source(s) {names} built in "
                    f"{time.perf_counter() - t0:.2f} s")
 
     kernels = smoke(ModelConfig(), dev, card)
+    kernels += train_smoke(ModelConfig(), dev, card)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -242,8 +237,8 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
     args, maxd = bench.kernel_inputs(params, cfg, B, F3, seed=5)
     packed, _, bufF0, bufA0, x0, h_pad, d_fr, _ = args
     kw = dict(B=B, maxd=maxd, n_steps=n3, mode="sampling")
-    ms, k_out = cuda_ms(lambda: K.generate(*args, **kw), reps=3)
-    plain_ms, r_out = cuda_ms(lambda: K.generate_reference(*args, **kw),
+    ms, k_out = bench.cuda_ms(lambda: K.generate(*args, **kw), reps=3)
+    plain_ms, r_out = bench.cuda_ms(lambda: K.generate_reference(*args, **kw),
                               reps=1)
     same = all(torch.equal(a, b) for a, b in zip(k_out, r_out))
     phase("k1", f"B={B} maxd {maxd} sampling {n3} steps: samples, rings "
@@ -258,8 +253,8 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
     nbytes += n3 * B * 4
     flops = n3 * 2 * B * (L * (2 * R * 2 * R + R * (S + R)) + S * S + S * Q)
     flops += F3 * 2 * B * L * K.AUX_PAD * 2 * R
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    bytes_ms = nbytes / bench.HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / bench.BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     weights = sum(t.numel() * t.element_size() for t in packed.values())
@@ -269,7 +264,7 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
                   f"{bound_by} ({nbytes / 1e6:.2f} MB once: {bytes_ms:.4f} "
                   f"ms, {flops / 1e9:.1f} GFLOP: {ops_ms:.4f} ms); weights "
                   f"re-read per step from HBM would take "
-                  f"{weights / HBM_BYTES_PER_S * 1e6:.2f} us/step | {card}")
+                  f"{weights / bench.HBM_BYTES_PER_S * 1e6:.2f} us/step | {card}")
     per_kernel = bench.kernel_us_per_step(args, kw, n3)
     phase("prof", "device time per step by kernel: " + (
         "not measured (the profiler saw no device time)" if per_kernel is None
@@ -284,6 +279,253 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
         "launches": launches, "max_abs_err": max_err, "ms": ms,
         "ms_per_step": ms / n3, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}]
+
+
+K2_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # max |d| / max |ref|
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-4, 1e-3       # engine against engine
+
+
+def tree_names(tree, prefix=""):
+    """The tree with each leaf replaced by its path, e.g. /fixed/0/W_skip."""
+    if isinstance(tree, dict):
+        return {k: tree_names(v, f"{prefix}/{k}") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_names(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
+    return prefix
+
+
+def rel_err(a, b):
+    """(max |a - b| / max |b|, max |a - b|)."""
+    d = float((a.float() - b.float()).abs().max())
+    return d / max(float(b.float().abs().max()), 1e-30), d
+
+
+def memory_corpus(cfg, seed, n_utts=3, seconds=(2.0, 3.0)):
+    """In-memory utterances (fs, x, h) at 22,050 Hz: a pitched tone whose
+    F0 (continuous, 80-300 Hz) is the aux's F0 column, random spectral
+    dims, and the scaler of their frames (uv dim pinned to 0/1)."""
+    from qpnet_tpu_torch.bench import f0_track
+    from qpnet_tpu_torch.data.stats import Scaler
+    rng = np.random.default_rng(seed)
+    up = cfg.upsampling_factor
+    utts = []
+    for _ in range(n_utts):
+        F = int(rng.uniform(*seconds) * FS) // up
+        f0 = f0_track(rng, F)
+        phase_ = np.cumsum(2 * np.pi * np.repeat(f0, up) / FS)
+        x = 0.4 * np.sin(phase_) + 0.02 * rng.normal(size=F * up)
+        h = rng.normal(size=(F, cfg.n_aux))
+        h[:, 0], h[:, 1] = 1.0, f0
+        utts.append((FS, x.astype(np.float32), h))
+    frames = np.concatenate([u[2] for u in utts])
+    mean, scale = frames.mean(0), frames.std(0)
+    mean[0], scale[0] = 0.0, 1.0
+    return utts, Scaler(mean, scale)
+
+
+def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
+                batch_length=20000):
+    """Phases 6-8 on `dev`; returns the K2 kernels' records."""
+    import torch
+
+    from qpnet_tpu_torch import bench
+    from qpnet_tpu_torch.config import TrainConfig
+    from qpnet_tpu_torch.data import batcher as DB
+    from qpnet_tpu_torch.models.qpnet import init_params, tree_map
+    from qpnet_tpu_torch.ops import train_kernel as TK
+    from qpnet_tpu_torch.train import step as TS
+    from qpnet_tpu_torch.train import trainer as TT
+    from qpnet_tpu_torch.train.checkpoint import load_checkpoint
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    params = init_params(0, cfg, device=dev)
+
+    # 6. K2 against its twins at full width
+    batch = bench.train_batch(cfg, 1, T, seed=6, valid_len=batch_length)
+    errs, twin_ms = {}, {}
+    for dtype in (f32, bf16):
+        dname = "float32" if dtype == f32 else "bfloat16"
+        for fused in (False, True):
+            static, W, o0, h, d = bench.stack_inputs(params, cfg, batch,
+                                                     dtype, fused)
+            tag = f"{dname} {'fused' if fused else 'fixed'}"
+            k_out = TK.stack_forward(static, dtype, W, o0, h, d)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            do = torch.randn(k_out[0].shape, generator=gen, device=dev)
+            dsk = torch.randn(k_out[1].shape, generator=gen, device=dev)
+            k_b = TK.stack_backward(static, dtype, W, k_out[2], k_out[3], h,
+                                    d, do, dsk)
+            # the twins take seconds: one call each, on the host clock
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_out = TK.fixed_stack_reference_fwd(static, dtype, W, o0, h, d)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            r_b = TK.fixed_stack_reference_bwd(static, dtype, W, k_out[2],
+                                               k_out[3], h, d, do, dsk)
+            torch.cuda.synchronize()
+            twin_ms[(dname, fused)] = ((t1 - t0) * 1e3,
+                                       (time.perf_counter() - t1) * 1e3)
+            names = ["o_out", "skip", "oall", "st"]
+            pairs = list(zip(k_out, r_out))
+            names += ["do0", "dh"] + [f"d{k}" for k in TK._WEIGHT_KEYS]
+            pairs += [(k_b[0], r_b[0]), (k_b[1], r_b[1])] + [
+                (k_b[2][k], r_b[2][k]) for k in TK._WEIGHT_KEYS]
+            res = {n: rel_err(a, b) for n, (a, b) in zip(names, pairs)}
+            for n, (a, _) in zip(names, pairs):
+                check(bool(torch.isfinite(a).all()), f"K2 {tag} {n} finite")
+            worst = max(res, key=lambda n: res[n][0])
+            phase("k2", f"{tag} maxd {static[2]}: worst {worst} "
+                        f"{res[worst][0]:.3e} (tol {K2_TOL[dname]}); "
+                        + ", ".join(f"{n} {v[0]:.1e}" for n, v in res.items()))
+            check(res[worst][0] <= K2_TOL[dname],
+                  f"K2 {tag} {worst} {res[worst][0]} > {K2_TOL[dname]}")
+            if not fused:
+                again = TK.stack_backward(static, dtype, W, k_out[2],
+                                          k_out[3], h, d, do, dsk)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(k_b[:2] + tuple(k_b[2].values()),
+                               again[:2] + tuple(again[2].values())))
+                phase("k2", f"{tag} backward twice bit-identical: {same}")
+                check(same, f"K2 {tag} backward must be deterministic")
+                del again
+            fwd_err = max(v[1] for n, v in res.items() if n in names[:4])
+            bwd_err = max(v[1] for n, v in res.items() if n not in names[:4])
+            errs[(dname, fused)] = (fwd_err, bwd_err)
+            del k_out, r_out, k_b, r_b, pairs
+    torch.cuda.empty_cache()
+
+    # 7. the training main path: train_loop through the kernels
+    utts, scaler = memory_corpus(cfg, seed=7)
+    tcfg = TrainConfig(lr=1e-4, iters=steps, checkpoint_interval=steps,
+                       intervals=1, batch_length=batch_length,
+                       max_length=max_length, batch_size=1, seed=1,
+                       fixed_engine="pallas")
+
+    def batches():
+        return DB.window_batches(
+            DB.utterance_stream(utts, lambda u: u, seed=1), cfg,
+            feat_transform=scaler.transform, batch_length=batch_length,
+            batch_size=1, max_length=max_length)
+
+    with tempfile.TemporaryDirectory() as expdir:
+        TK.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = TT.train_loop(cfg, tcfg, batches(), expdir, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (TK.fwd_launch_count, TK.bwd_launch_count)
+        check(min(launches) > 0, f"the main path must launch both K2 "
+                                 f"kernels, got {launches}")
+        losses = TT.read_loss_record(os.path.join(expdir, "loss-final.yml"))
+        check(len(losses) == steps and all(np.isfinite(losses)),
+              f"losses {losses}")
+        final = load_checkpoint(os.path.join(expdir, "checkpoint-final.pkl"))
+        ckpt = load_checkpoint(os.path.join(expdir,
+                                            f"checkpoint-{steps}.pkl"))
+        mine = [p.detach().cpu().numpy() for p in
+                TS.tree_leaves(state.params)]
+        for tree in (final["model"], ckpt["model"]):
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(TS.tree_leaves(tree), mine)),
+                  "checkpoints must reload equal to the trained params")
+        check(ckpt["iterations"] == steps
+              and ckpt["optimizer"]["count"] == steps, "checkpoint state")
+        b_np = next(batches())
+    phase("main", f"train_loop, kernel engine, f32, B=1, T={T}, "
+                  f"{steps} steps: losses {[round(x, 6) for x in losses]}, "
+                  f"{wall:.3f} s wall (build and checkpoints included), K2 "
+                  f"launches fwd {launches[0]} bwd {launches[1]}; "
+                  f"checkpoint-final.pkl and checkpoint-{steps}.pkl reload "
+                  f"equal | {card}")
+    b_np.pop("window_lens")
+    b = TS.batch_to_device(b_np, dev)
+    # one step's loss and gradients with each engine, and with the plain
+    # engine in f64: the weight gradients are cancelling sums over all T
+    # rows, whose f32 rounding alone moves either engine by 1e-3 to 5e-3
+    # of a leaf's scale, so the f64 gradient is the yardstick
+    losses, grads = {}, {}
+    for engine, dtype in (("xla", f32), ("pallas", f32), ("f64", f64)):
+        p = tree_map(lambda t: t.detach().to(dtype).requires_grad_(),
+                     state.params)
+        loss = TS._loss_fn(p, cfg, b, dtype, False,
+                           "xla" if engine == "f64" else engine)
+        loss.backward()
+        losses[engine] = float(loss.detach())
+        grads[engine] = [torch.zeros_like(x) if x.grad is None
+                         else x.grad.double() for x in TS.tree_leaves(p)]
+    loss_rel = abs(losses["pallas"] - losses["xla"]) / abs(losses["xla"])
+    names = TS.tree_leaves(tree_names(state.params))
+    rows = []
+    for n, gp, gx, gt in zip(names, grads["pallas"], grads["xla"],
+                             grads["f64"]):
+        rows.append((rel_err(gp, gx)[0], rel_err(gp, gt)[0],
+                     rel_err(gx, gt)[0], n))
+    worst = max(rows)
+    worst_x = max(r[2] for r in rows)
+    bad = [r for r in rows if r[1] > max(STEP_GRAD_TOL, 2 * worst_x)]
+    phase("main", f"one step from the trained params: loss xla "
+                  f"{losses['xla']:.7f} pallas {losses['pallas']:.7f} f64 "
+                  f"{losses['f64']:.7f} (engines rel {loss_rel:.2e}, tol "
+                  f"{STEP_LOSS_TOL}); gradient leaves, max |d| / max |ref|: "
+                  f"worst pallas-vs-xla {worst[3]} {worst[0]:.2e} (against "
+                  f"f64: pallas {worst[1]:.2e}, xla {worst[2]:.2e}); worst "
+                  f"pallas-vs-f64 {max(r[1] for r in rows):.2e}, worst "
+                  f"xla-vs-f64 {worst_x:.2e}; leaves where pallas is "
+                  f"farther from f64 than max({STEP_GRAD_TOL}, 2 x xla's "
+                  f"worst): {len(bad)}")
+    check(loss_rel <= STEP_LOSS_TOL, f"engine losses differ by {loss_rel}")
+    check(not bad, f"kernel-engine gradients off the f64 gradient: {bad}")
+    del grads, state
+    torch.cuda.empty_cache()
+
+    # 8. times at the main path's variant (fixed layers only), f32 and bf16
+    times = {}
+    for dtype in (f32, bf16):
+        dname = "float32" if dtype == f32 else "bfloat16"
+        static, W, o0, h, d = bench.stack_inputs(params, cfg, batch, dtype,
+                                                 False)
+        f_ms, out = bench.cuda_ms(
+            lambda: TK.stack_forward(static, dtype, W, o0, h, d))
+        gen = torch.Generator(device=dev).manual_seed(8)
+        do = torch.randn(out[0].shape, generator=gen, device=dev)
+        dsk = torch.randn(out[1].shape, generator=gen, device=dev)
+        b_ms, _ = bench.cuda_ms(lambda: TK.stack_backward(
+            static, dtype, W, out[2], out[3], h, d, do, dsk))
+        fp_ms, bp_ms = twin_ms[(dname, False)]
+        bounds = bench.stack_bounds(static, 1, T, dtype)
+        steps_ms = {e: bench.train_step_ms(params, cfg, b_np, e, dtype)[0]
+                    for e in ("xla", "pallas")}
+        times[dname] = (f_ms, b_ms, fp_ms, bp_ms, bounds, steps_ms)
+        phase("time", f"K2 {dname} B=1 T={T} {len(static[0])} layers: fwd "
+                      f"{f_ms:.3f} ms ({bounds['fwd'][2] / f_ms / 1e9:.2f} "
+                      f"TFLOP/s; twin {fp_ms:.3f} ms; bound "
+                      f"{bounds['fwd'][0]:.4f} ms by {bounds['fwd'][1]}), "
+                      f"bwd {b_ms:.3f} ms "
+                      f"({bounds['bwd'][2] / b_ms / 1e9:.2f} TFLOP/s; twin "
+                      f"{bp_ms:.3f} ms; bound {bounds['bwd'][0]:.4f} ms by "
+                      f"{bounds['bwd'][1]}); train step xla "
+                      f"{steps_ms['xla']:.3f} ms, pallas "
+                      f"{steps_ms['pallas']:.3f} ms | {card}")
+        del out
+    f_ms, b_ms, fp_ms, bp_ms, bounds, steps_ms = times["float32"]
+    common = {"route": "cuda", "source": "qpnet_tpu_torch/csrc/train_kernel.cu",
+              "library_ms": None}
+    return [
+        dict(name="train_kernel_fwd", **common,
+             replaces="qpnet_tpu/ops/train_kernel.py:195",
+             tpu_kernel="qpnet_tpu/ops/train_kernel.py::_fwd_call",
+             launches=launches[0], max_abs_err=errs[("float32", False)][0],
+             ms=f_ms, plain_ms=fp_ms, bound_ms=bounds["fwd"][0],
+             bound_by=bounds["fwd"][1], bf16_ms=times["bfloat16"][0],
+             train_step_ms=steps_ms),
+        dict(name="train_kernel_bwd", **common,
+             replaces="qpnet_tpu/ops/train_kernel.py:431",
+             tpu_kernel="qpnet_tpu/ops/train_kernel.py::_bwd_call",
+             launches=launches[1], max_abs_err=errs[("float32", False)][1],
+             ms=b_ms, plain_ms=bp_ms, bound_ms=bounds["bwd"][0],
+             bound_by=bounds["bwd"][1], bf16_ms=times["bfloat16"][1],
+             train_step_ms=steps_ms)]
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import fnmatch
 import os
-from typing import List
+from typing import List, Sequence
 
 
 def find_files(directory: str, pattern: str = "*.wav",
@@ -21,3 +21,9 @@ def find_files(directory: str, pattern: str = "*.wav",
 def read_txt(file_list: str) -> List[str]:
     with open(file_list) as f:
         return [line.strip() for line in f if line.strip()]
+
+
+def check_filenames(filepathlist: Sequence[str]) -> bool:
+    """All paths share the same basename stem."""
+    stems = {os.path.splitext(os.path.basename(p))[0] for p in filepathlist}
+    return len(stems) == 1

@@ -11,7 +11,8 @@ fill.
 Precision: compute_dtype=float32 is the parity mode.  compute_dtype=bfloat16
 rounds every product's operands to bf16, accumulates in f32, and stores the
 per-block activations in bf16, while the skip sum and the logits stay f32 —
-the JAX package's storage points.
+the JAX package's storage points.  The plain engine also runs in float64
+(with float64 parameters), as a reference for the f32 engines' gradients.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from qpnet_tpu_torch.config import ModelConfig
 
@@ -157,10 +159,12 @@ def _gate(z: torch.Tensor, R: int) -> torch.Tensor:
     return torch.sigmoid(z[..., :R]) * torch.tanh(z[..., R:])
 
 
-def _matmul(a, w, dtype, out_dtype=torch.float32):
+def _matmul(a, w, dtype, out_dtype=None):
     """Product on the last axis with operands rounded to `dtype`, summed in
-    f32 and stored as `out_dtype`."""
-    return (a.to(dtype).float() @ w.to(dtype).float()).to(out_dtype)
+    f32 and stored as `out_dtype` (default f32).  dtype=float64 sums and
+    stores in f64: a reference for checking f32 gradients."""
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    return (a.to(dtype).to(acc) @ w.to(dtype).to(acc)).to(out_dtype or acc)
 
 
 def _act_dtype(dtype):
@@ -229,19 +233,26 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
             h: Optional[torch.Tensor], d: torch.Tensor,
             compute_dtype=torch.float32,
             h_up: Optional[torch.Tensor] = None,
-            fixed_engine: str = "xla") -> torch.Tensor:
+            remat: bool = False, fixed_engine: str = "xla",
+            maxd_bucket: Optional[int] = None) -> torch.Tensor:
     """Teacher-forced forward over a full window.
 
     x: (B, T) int mu-law classes (end-aligned, history on the left);
     h: (B, T // upsampling_factor, n_aux) standardized aux, ignored when a
     sample-rate `h_up` (B, T, n_aux) is given; d: (B, T) dilation factors.
+    fixed_engine: "xla" runs the block loop below (autograd through plain
+    PyTorch); "pallas" runs the residual stack through the fused training
+    kernel (ops/train_kernel.py: CUDA on the card, its twin on the CPU),
+    whose gradient is the backward kernel.  The names are the JAX
+    package's, so `model.conf` and the CLI argv read the same in both.
+    remat: recompute each block of the plain engine in the backward
+    (torch.utils.checkpoint) instead of keeping its activations.
+    maxd_bucket: with "pallas", a bucket >= ceil(max d) also fuses the
+    pitch-adaptive layers into the kernel; it needs frame-constant d (the
+    training batcher's), read at frame rate as d[:, ::up].
     Returns (B, T, n_quantize) f32 logits; logits[:, t] predicts x[t+1].
     """
-    if fixed_engine == "pallas":
-        raise NotImplementedError(
-            "the fused training kernel (K2, qpnet_tpu/ops/train_kernel.py) "
-            "is not ported yet: ROADMAP.md, Queue 2, K2")
-    if fixed_engine != "xla":
+    if fixed_engine not in ("xla", "pallas"):
         raise ValueError("fixed_engine should be 'xla' or 'pallas'")
     R = cfg.n_resch
     act = _act_dtype(compute_dtype)
@@ -251,11 +262,41 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     o = embed(params, x).to(act)
     skip_sum = torch.zeros(o.shape[:2] + (cfg.n_skipch,),
                            dtype=torch.float32, device=o.device)
-    for p, dil in zip(params["fixed"], cfg.dilationsF):
-        o, skip = fixed_block(p, o, h_up, dil, R, compute_dtype)
-        skip_sum = skip_sum + skip
-    for p, dil in zip(params["adaptive"], cfg.dilationsA):
-        o, skip = adaptive_block(p, o, h_up, round_look_back(d, dil), R,
-                                 compute_dtype)
+    if remat:
+        def fblock(*args):
+            return checkpoint(fixed_block, *args, use_reentrant=False)
+
+        def ablock(*args):
+            return checkpoint(adaptive_block, *args, use_reentrant=False)
+    else:
+        fblock, ablock = fixed_block, adaptive_block
+    if fixed_engine == "pallas":
+        from qpnet_tpu_torch.ops import train_kernel as TK
+        up = cfg.upsampling_factor
+        fuse = maxd_bucket is not None and len(cfg.dilationsA) > 0
+        layers = list(params["fixed"]) + (
+            list(params["adaptive"]) if fuse else [])
+        W = TK.stack_weights(layers, cfg.n_aux)
+        h_pad = F.pad(h_up, (0, TK.AUX_PAD - cfg.n_aux))
+        if fuse:
+            d_frames = d[:, ::up].detach().float().contiguous()
+            static = (tuple(cfg.dilationsF), tuple(cfg.dilationsA),
+                      int(maxd_bucket), up, R, cfg.n_skipch)
+        else:
+            d_frames = None
+            static = (tuple(cfg.dilationsF), (), 1, up, R, cfg.n_skipch)
+        o, skip = TK.fixed_stack_fused(static, compute_dtype, W, o, h_pad,
+                                       d_frames)
+        skip_sum = skip_sum + skip + sum(p["b_skip"] for p in layers)
+        adaptive_rest = [] if fuse else \
+            list(zip(params["adaptive"], cfg.dilationsA))
+    else:
+        for p, dil in zip(params["fixed"], cfg.dilationsF):
+            o, skip = fblock(p, o, h_up, dil, R, compute_dtype)
+            skip_sum = skip_sum + skip
+        adaptive_rest = list(zip(params["adaptive"], cfg.dilationsA))
+    for p, dil in adaptive_rest:
+        o, skip = ablock(p, o, h_up, round_look_back(d, dil), R,
+                         compute_dtype)
         skip_sum = skip_sum + skip
     return postprocess(params, skip_sum, compute_dtype)

@@ -1,0 +1,267 @@
+"""The training loop shared by the SI-train and SD-update workers, on one
+device.  The JAX package's `qpnet_tpu/train/trainer.py` behaviour: prefetched
+batches, the loss averaged every `intervals` iterations and logged with an
+ETA, `checkpoint-<iter>.pkl` every `checkpoint_interval`, the weights-only
+`checkpoint-final.pkl`, the `loss-final.yml` history, `--resume` (a path, or
+"auto" for the newest checkpoint in expdir), `--pretrain` (weights only,
+fresh optimizer) and cooperative preemption.
+
+`run_training` reads the corpus from wav/h5 lists; `train_loop` is the loop
+itself over any stream of the batcher's batches (chip_smoke.py feeds it the
+windowing of an in-memory corpus).  Multi-host and mesh training are not
+ported: ROADMAP.md, Queue 1 item 8.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import re
+import signal
+import time
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from qpnet_tpu_torch.config import ModelConfig, TrainConfig
+from qpnet_tpu_torch.data.batcher import (background, padded_shape,
+                                          train_window_generator)
+from qpnet_tpu_torch.models.qpnet import (count_params, init_params,
+                                          params_from_numpy, resolve_device)
+from qpnet_tpu_torch.train.checkpoint import (adam_state_from_optax,
+                                              checkpoint_backend,
+                                              load_checkpoint,
+                                              save_checkpoint, save_final)
+from qpnet_tpu_torch.train.step import (MULTI_DEVICE, TrainState,
+                                        batch_to_device, load_optimizer_state,
+                                        make_optimizer, make_train_step,
+                                        optimizer_state, resolve_fixed_engine)
+
+
+class PreemptionGuard:
+    """Cooperative preemption for the training loop: a SIGTERM (an
+    eviction notice) lets the step in flight finish, a `checkpoint-<iter>`
+    is written and the process exits cleanly, so a restarted job with
+    `--resume auto` continues from that iteration.
+
+    `QPNET_PREEMPT_AFTER=N` trips the guard after N steps of this process
+    (deterministic fault injection for tests).
+    """
+
+    def __init__(self):
+        self.signum: Optional[int] = None
+        self._prev = None
+        self._installed = False
+        after = os.environ.get("QPNET_PREEMPT_AFTER")
+        self._after = int(after) if after else None
+        self._steps = 0
+
+    def install(self) -> "PreemptionGuard":
+        try:
+            self._prev = signal.signal(signal.SIGTERM, self._on_signal)
+            self._installed = True
+        except ValueError:
+            # not the main thread: the env knob still works
+            pass
+        return self
+
+    def uninstall(self):
+        if self._installed:
+            signal.signal(signal.SIGTERM, self._prev)
+            self._installed = False
+
+    def _on_signal(self, signum, frame):
+        self.signum = signum
+
+    def tripped_after_step(self) -> bool:
+        """Call once per completed training iteration."""
+        self._steps += 1
+        if self._after is not None and self._steps >= self._after:
+            return True
+        return self.signum is not None
+
+
+# --- loss-final.yml: a YAML list of floats, written as PyYAML's safe_dump
+# writes it, so both packages (and yaml.safe_load) read it back equal -------
+
+def _yaml_float(v: float) -> str:
+    if v != v:
+        return ".nan"
+    if math.isinf(v):
+        return ".inf" if v > 0 else "-.inf"
+    text = repr(float(v)).lower()
+    if "." not in text and "e" in text:
+        text = text.replace("e", ".0e", 1)
+    return text
+
+
+def write_loss_record(path: str, losses: Sequence[float]) -> None:
+    text = "".join(f"- {_yaml_float(v)}\n" for v in losses) or "[]\n"
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text)
+
+
+def read_loss_record(path: str) -> List[float]:
+    special = {".nan": math.nan, ".inf": math.inf, "-.inf": -math.inf}
+    with open(path, encoding="utf-8") as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    if lines in ([], ["[]"]):
+        return []
+    values = [ln[1:].strip().lower() for ln in lines]   # "- <float>"
+    return [special[v] if v in special else float(v) for v in values]
+
+
+def _newest_checkpoint(expdir: str) -> Optional[str]:
+    cands = []
+    for name in os.listdir(expdir) if os.path.isdir(expdir) else []:
+        m = re.fullmatch(r"checkpoint-(\d+)\.(pkl|orbax)", name)
+        if m:
+            cands.append((int(m.group(1)), name))
+    return os.path.join(expdir, max(cands)[1]) if cands else None
+
+
+def run_training(cfg: ModelConfig, tcfg: TrainConfig,
+                 wav_list: Sequence[str], feat_list: Sequence[str],
+                 stats_path: str, expdir: str, feature_type: str = "world",
+                 resume: Optional[str] = None,
+                 pretrain: Optional[str] = None, mesh=None,
+                 n_microbatches: Optional[int] = None,
+                 device="cuda") -> TrainState:
+    """Train on the wav/h5 pairs of two lists (see `train_loop`)."""
+    if mesh is not None or n_microbatches:
+        raise NotImplementedError(MULTI_DEVICE)
+    from qpnet_tpu_torch.data.stats import load_scaler
+    scaler = load_scaler(stats_path, feature_type)
+    batches = background(2)(train_window_generator)(
+        wav_list, feat_list, cfg, feat_transform=scaler.transform,
+        feature_type=feature_type, batch_length=tcfg.batch_length,
+        batch_size=tcfg.batch_size, max_length=tcfg.max_length,
+        f0_threshold=tcfg.f0_threshold, shuffle=True, seed=tcfg.seed,
+        loop=True)
+    return train_loop(cfg, tcfg, batches, expdir, resume=resume,
+                      pretrain=pretrain, device=device)
+
+
+def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
+               expdir: str, resume: Optional[str] = None,
+               pretrain: Optional[str] = None,
+               device="cuda") -> TrainState:
+    """Run iterations up to `tcfg.iters` over the batcher's numpy batches;
+    returns the final state (parameters and optimizer on `device`)."""
+    device = resolve_device(device)
+    checkpoint_backend()
+    os.makedirs(expdir, exist_ok=True)
+    np.random.seed(tcfg.seed)
+    params = init_params(tcfg.seed, cfg, device=device)
+    logging.info("number of model parameters: %d", count_params(params))
+    tx = make_optimizer(lr=tcfg.lr, weight_decay=tcfg.weight_decay)
+    compute_dtype = (torch.bfloat16 if tcfg.dtype in ("bfloat16", "bf16")
+                     else torch.float32)
+    # recompute the plain engine's blocks in the backward once a batch's
+    # activations get large (the JAX package's thresholds)
+    T = padded_shape(tcfg.max_length, cfg.upsampling_factor)
+    remat_threshold = 130_000 if compute_dtype == torch.float32 else 260_000
+    remat = max(1, tcfg.batch_size) * T > remat_threshold
+    if compute_dtype == torch.bfloat16:
+        logging.info("mixed precision: bf16 products/activations, "
+                     "f32 master weights and loss accumulation")
+    step_fn = make_train_step(cfg, tx, remat=remat,
+                              compute_dtype=compute_dtype,
+                              fixed_engine=tcfg.fixed_engine)
+    engine = resolve_fixed_engine(tcfg.fixed_engine, cfg, tcfg.batch_size, T,
+                                  compute_dtype)
+    if engine == "pallas":
+        logging.info("residual stack: fused training kernel "
+                     "(ops/train_kernel.py)")
+
+    iterations = 0
+    loss_record: List[float] = []
+    flossyml = os.path.join(expdir, "loss-final.yml")
+    if resume == "auto":
+        resume = _newest_checkpoint(expdir)
+        if resume:
+            logging.info("autoresume from %s", resume)
+    if resume and not os.path.exists(resume):
+        raise FileNotFoundError(
+            f"--resume checkpoint {resume} does not exist (refusing to "
+            f"silently restart from scratch)")
+    if resume:
+        ckpt = load_checkpoint(resume)
+        params = params_from_numpy(ckpt["model"], device)
+        opt = tx.init(params)
+        load_optimizer_state(opt, params,
+                             adam_state_from_optax(ckpt["optimizer"]))
+        iterations = int(ckpt["iterations"])
+        logging.info("restored from %d-iter checkpoint.", iterations)
+        if os.path.exists(flossyml):
+            loss_record = read_loss_record(flossyml)
+    else:
+        if pretrain:
+            params = params_from_numpy(load_checkpoint(pretrain)["model"],
+                                       device)
+            logging.info("loaded pretrained model %s (fresh optimizer).",
+                         pretrain)
+        opt = tx.init(params)
+    state = TrainState(params, opt, iterations)
+
+    def maxd_bucket(d_np):
+        """The adaptive layers fuse into the kernel only on request
+        (QPNET_FUSE_ADAPTIVE=1), as in the JAX package."""
+        if engine != "pallas" or not os.environ.get("QPNET_FUSE_ADAPTIVE"):
+            return None
+        from qpnet_tpu_torch.models.generate import bucket_maxd
+        return int(bucket_maxd(float(np.ceil(d_np.max()))))
+
+    def save(it):
+        save_checkpoint(expdir, state.params,
+                        optimizer_state(state.opt_state, state.params), it)
+
+    # losses stay on the device until the logging interval
+    pending = []
+    interval_start = time.time()
+    logging.info("training start!")
+    guard = PreemptionGuard().install()
+    try:
+        for i in range(iterations, tcfg.iters):
+            batch_np = next(batches)
+            batch_np.pop("window_lens", None)
+            batch = batch_to_device(batch_np, device)
+            state, loss = step_fn(state, batch, maxd_bucket(batch_np["d"]))
+            pending.append(loss)
+            logged = (i + 1) % tcfg.intervals == 0
+            if logged:
+                avg = float(torch.stack(pending).mean())
+                sec = (time.time() - interval_start) / len(pending)
+                eta = int((tcfg.iters - (i + 1)) * sec)
+                logging.info("(iter:%d) average loss = %.6f (%.3f sec / "
+                             "batch) ETA %02d:%02d:%02d", i + 1, avg, sec,
+                             eta // 3600, (eta % 3600) // 60, eta % 60)
+                loss_record.append(avg)
+                pending = []
+            saved_here = (i + 1) % tcfg.checkpoint_interval == 0
+            if saved_here:
+                t_save = time.time()
+                save(i + 1)
+                # checkpoint seconds do not count in the next sec/batch
+                interval_start += time.time() - t_save
+                logging.info("%d-iter checkpoint created.", i + 1)
+            if logged:
+                interval_start = time.time()
+            if guard.tripped_after_step() and (i + 1) < tcfg.iters:
+                if not saved_here:
+                    save(i + 1)
+                logging.warning(
+                    "preemption%s at iteration %d: checkpoint saved, "
+                    "exiting (resume with --resume auto)",
+                    f" (signal {guard.signum})" if guard.signum else "",
+                    i + 1)
+                write_loss_record(flossyml, loss_record)
+                return state
+    finally:
+        guard.uninstall()
+    save_final(expdir, state.params)
+    logging.info("final checkpoint created.")
+    write_loss_record(flossyml, loss_record)
+    return state

@@ -143,11 +143,19 @@ def test_forward_with_sample_rate_aux_matches_jax():
 
 
 def test_fused_training_engine_is_not_ported():
+    """The fused training engine is ported now (tests/
+    test_torch_port_train_kernel.py holds it against JAX): on the CPU it
+    runs the kernel's twin, which gives the plain engine's logits; an
+    unknown engine name is refused."""
     _, pt, _, cfg = carried(5)
     x, h, d = _inputs(cfg, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TQ.forward(pt, cfg, torch.from_numpy(x), torch.from_numpy(h),
-                   torch.from_numpy(d), fixed_engine="pallas")
+    args = (pt, cfg, torch.from_numpy(x), torch.from_numpy(h),
+            torch.from_numpy(d))
+    np.testing.assert_allclose(
+        TQ.forward(*args, fixed_engine="pallas").numpy(),
+        TQ.forward(*args, fixed_engine="xla").numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="fixed_engine"):
+        TQ.forward(*args, fixed_engine="scan")
 
 
 def test_entry_points_default_to_cuda():
@@ -157,3 +165,18 @@ def test_entry_points_default_to_cuda():
         TQ.init_params(0, ModelConfig(**TINY))
     with pytest.raises(RuntimeError, match="CUDA"):
         TQ.params_from_numpy({"a": np.zeros(2)})
+
+
+def test_plain_engine_runs_in_float64():
+    """The f64 plain engine (the reference for f32 gradients) computes the
+    f32 forward's logits in f64."""
+    pj, pt, cfg_j, cfg = carried(6)
+    x, h, d = _inputs(cfg, 6)
+    args = (torch.from_numpy(x), torch.from_numpy(h), torch.from_numpy(d))
+    p64 = TQ.tree_map(lambda t: t.double(), pt)
+    got = TQ.forward(p64, cfg, *args, compute_dtype=torch.float64)
+    assert got.dtype == torch.float64
+    ref = jax_forward(pj, cfg_j, jnp.asarray(x), jnp.asarray(h),
+                      jnp.asarray(d))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
