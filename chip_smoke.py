@@ -30,7 +30,23 @@ Phases, each reported on its own line; any failure exits non-zero:
      plain engine's f64 gradient than max(1e-3, twice the plain f32
      engine's worst leaf), as max |d| / max |ref|;
   8. times: K2 forward and backward per call (f32, bf16) beside their
-     twins and bounds, and the training step with each engine.
+     twins and bounds, and the training step with each engine;
+  9. K1's w8a8 branch and K1-bf16 against their twins at the full width of
+     the deep Rd10Rr3Ed4Er1 network (34 layers, random weights from seed
+     0), B=7 (its reference decode batch), maxd 48, 4 frames: forced logits
+     within 2e-2 (they agree exactly), sampled samples, rings and x equal;
+     w8a8 against bf16 forced logits: relative RMSE < 0.10, argmax
+     agreement > 0.90; K1-w8a8 against its twin at the sessions' B=8;
+ 10. the serving main path: `StreamingService` on the deep net at w8a8
+     (maxd 48, 7 streams, session B=8, 5500-sample chunks after a
+     1100-sample first chunk) behind `serve_tcp` on 127.0.0.1, 7
+     concurrent `request_stream` clients with 0.5-1.0 s utterances (F0
+     80-300 Hz, 10% unvoiced): in argmax mode gathered into one group, each
+     stream's PCM equal to one direct `StreamingGenerator`'s; then in
+     sampling mode, each stream's time to first audio and realtime factor;
+     K1-w8a8 must have been launched;
+ 11. times: K1 ms/step on the deep net, bf16 and w8a8, at B=7 and B=64,
+     beside the bound, the twin and the device time by CUDA kernel.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
@@ -117,6 +133,7 @@ def main() -> int:
 
     kernels = smoke(ModelConfig(), dev, card)
     kernels += train_smoke(ModelConfig(), dev, card)
+    kernels.insert(1, deep_main(dev, card))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -235,7 +252,6 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
     # 5. one K1 call at the main path's batch and maxd bucket, 4 frames:
     # timed, and held against the twin
     args, maxd = bench.kernel_inputs(params, cfg, B, F3, seed=5)
-    packed, _, bufF0, bufA0, x0, h_pad, d_fr, _ = args
     kw = dict(B=B, maxd=maxd, n_steps=n3, mode="sampling")
     ms, k_out = bench.cuda_ms(lambda: K.generate(*args, **kw), reps=3)
     plain_ms, r_out = bench.cuda_ms(lambda: K.generate_reference(*args, **kw),
@@ -244,27 +260,14 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
     phase("k1", f"B={B} maxd {maxd} sampling {n3} steps: samples, rings "
                 f"and x equal to the twin: {same}")
     check(same, f"K1 at B={B} must equal its twin")
+    bound_ms, bound_by, mb, gflop, w_us = bench.k1_bound(args, B, n3)
     L = len(cfg.dilationsF) + len(cfg.dilationsA)
-    R, S, Q = cfg.n_resch, cfg.n_skipch, cfg.n_quantize
-    nbytes = sum(t.numel() * t.element_size() for t in packed.values())
-    nbytes += 2 * sum(t.numel() * t.element_size()
-                      for t in (bufF0, bufA0, x0))
-    nbytes += sum(t.numel() * t.element_size() for t in (h_pad, d_fr))
-    nbytes += n3 * B * 4
-    flops = n3 * 2 * B * (L * (2 * R * 2 * R + R * (S + R)) + S * S + S * Q)
-    flops += F3 * 2 * B * L * K.AUX_PAD * 2 * R
-    bytes_ms = nbytes / bench.HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / bench.BF16_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    weights = sum(t.numel() * t.element_size() for t in packed.values())
     phase("time", f"K1 B={B} {n3} steps sampling: {ms:.3f} ms/call, "
                   f"{ms / n3 * 1e3:.2f} us/step, {2 * L + 2} launches/step; "
                   f"plain twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by "
-                  f"{bound_by} ({nbytes / 1e6:.2f} MB once: {bytes_ms:.4f} "
-                  f"ms, {flops / 1e9:.1f} GFLOP: {ops_ms:.4f} ms); weights "
-                  f"re-read per step from HBM would take "
-                  f"{weights / bench.HBM_BYTES_PER_S * 1e6:.2f} us/step | {card}")
+                  f"{bound_by} ({mb:.2f} MB once, {gflop:.1f} GFLOP); weights "
+                  f"re-read per step from HBM would take {w_us:.2f} us/step "
+                  f"| {card}")
     per_kernel = bench.kernel_us_per_step(args, kw, n3)
     phase("prof", "device time per step by kernel: " + (
         "not measured (the profiler saw no device time)" if per_kernel is None
@@ -279,6 +282,271 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
         "launches": launches, "max_abs_err": max_err, "ms": ms,
         "ms_per_step": ms / n3, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}]
+
+
+W8A8_RMSE_MAX, W8A8_AGREE_MIN = 0.10, 0.90     # w8a8 against bf16 logits
+DEEP = "Rd10Rr3Ed4Er1"
+
+
+def deep_smoke(cfg, params, dev, card, B=7, F=4, maxd=48):
+    """Phase 9: K1-w8a8 and K1-bf16 against their twins at the deep
+    network's full width; returns {quantize: (max |dlogit|, twin ms, args,
+    kw)} for the records of phase 11."""
+    import torch
+
+    from qpnet_tpu_torch import bench
+    from qpnet_tpu_torch.models import generate as G
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    up, Q = cfg.upsampling_factor, cfg.n_quantize
+    rng = np.random.default_rng(9)
+    x, h, _, d = make_inputs(rng, cfg, [F] * B)
+    n = F * up
+    x_seed = np.full((B, cfg.receptive_field(maxd) + 1), Q // 2, np.int32)
+    h_pad, d_fr, _ = G._pallas_host_prep(cfg, h, d[:, :n], n, dev)
+    xf = torch.as_tensor(rng.integers(0, Q, (n, 1, B)), dtype=torch.int32,
+                         device=dev)
+    logits, out = {}, {}
+    for q in ("w8a8", "none"):
+        packed, bufF0, bufA0, x0 = G._prologue(
+            params, cfg, torch.as_tensor(x_seed, device=dev), h_pad[0], maxd,
+            const_seed=True, quantize=q)
+        args = (packed, cfg, bufF0, bufA0, x0, h_pad[:F], d_fr[:F], 7)
+        kw = dict(B=B, maxd=maxd, n_steps=n, quantize=q)
+        name = "K1-w8a8" if q == "w8a8" else "K1-bf16"
+        if q == "w8a8":
+            phase("k1deep", f"{DEEP}: {len(cfg.dilationsF)} fixed + "
+                            f"{len(cfg.dilationsA)} adaptive layers, B={B} "
+                            f"maxd {maxd}, d in [{d[:, :n].min():.3f}, "
+                            f"{d[:, :n].max():.3f}], rings "
+                            f"F{tuple(bufF0.shape)} A{tuple(bufA0.shape)}")
+        k_out = K.generate(*args, **kw, mode="forced", x_forced=xf)
+        r_out = K.generate_reference(*args, **kw, mode="forced", x_forced=xf)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(k_out[0]).all()), f"{name} logits finite")
+        err = float((k_out[0] - r_out[0]).abs().max())
+        rings = all(torch.equal(a, b) for a, b in zip(k_out[1:], r_out[1:]))
+        phase("k1deep", f"{name} forced {n} steps: max |dlogit| {err:.3e} "
+                        f"(tol {FORCED_TOL}), logit scale "
+                        f"{float(r_out[0].abs().max()):.3f}, rings and x "
+                        f"equal {rings}")
+        check(err <= FORCED_TOL, f"{name} forced logits {err} > {FORCED_TOL}")
+        check(rings, f"{name} forced rings and x state")
+        logits[q] = k_out[0].float()
+        k_s = K.generate(*args, **kw, mode="sampling")
+        # the twin takes seconds: one call, on the host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r_s = K.generate_reference(*args, **kw, mode="sampling")
+        torch.cuda.synchronize()
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        same = all(torch.equal(a, b) for a, b in zip(k_s, r_s))
+        phase("k1deep", f"{name} sampling {n} steps: samples, rings and x "
+                        f"equal to the twin: {same} (twin {twin_ms:.1f} ms)")
+        check(same, f"{name} sampling must equal its twin")
+        out[q] = (err, twin_ms, args, dict(kw, mode="sampling"))
+        del k_out, r_out, k_s, r_s
+    ref, qz = logits["none"], logits["w8a8"]
+    rel = float((qz - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+    agree = float((qz.argmax(-1) == ref.argmax(-1)).float().mean())
+    phase("k1deep", f"w8a8 against bf16 forced logits on the card: relative "
+                    f"RMSE {rel:.4f} (max {W8A8_RMSE_MAX}), argmax agreement "
+                    f"{agree:.4f} (min {W8A8_AGREE_MIN})")
+    check(rel < W8A8_RMSE_MAX, f"w8a8 relative RMSE {rel}")
+    check(agree > W8A8_AGREE_MIN, f"w8a8 argmax agreement {agree}")
+    # the serving sessions' own batch (7 streams padded to 8), 2 frames
+    args8, maxd8 = bench.kernel_inputs(params, cfg, 8, 2, seed=10,
+                                       quantize="w8a8")
+    kw8 = dict(B=8, maxd=maxd8, n_steps=2 * up, mode="sampling",
+               quantize="w8a8")
+    same = all(torch.equal(a, b) for a, b in zip(
+        K.generate(*args8, **kw8), K.generate_reference(*args8, **kw8)))
+    phase("k1deep", f"K1-w8a8 at the sessions' B=8, maxd {maxd8}, "
+                    f"{2 * up} steps: equal to the twin {same}")
+    check(same, "K1-w8a8 at B=8 must equal its twin")
+    return out
+
+
+def deep_main(dev, card):
+    """Phases 9-11 on the deep network; returns K1-w8a8's record."""
+    import torch
+
+    from qpnet_tpu_torch.config import ModelConfig
+    from qpnet_tpu_torch.models.qpnet import count_params, init_params
+    cfg = ModelConfig.from_network_name(DEEP)
+    params = init_params(0, cfg, device=dev)
+    phase("k1deep", f"{DEEP}: {count_params(params):,} parameters, random "
+                    f"from seed 0")
+    deep = deep_smoke(cfg, params, dev, card)
+    launches = serve_smoke(cfg, params, dev, card)
+    call_ms = deep_times(cfg, params, card, deep)
+    err, twin_ms, _, kw = deep["w8a8"]
+    ms, bound_ms, bound_by = call_ms["w8a8"]
+    del deep, params
+    torch.cuda.empty_cache()
+    return {
+        "name": "gen_kernel_w8a8", "route": "cuda",
+        "source": "qpnet_tpu_torch/csrc/gen_kernel.cu",
+        "replaces": "qpnet_tpu/ops/gen_kernel.py:304",
+        "tpu_kernel": "qpnet_tpu/ops/gen_kernel.py::pallas_generate "
+                      "(quantize='w8a8', mmq)",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "ms_per_step": ms / kw["n_steps"], "plain_ms": twin_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "network": DEEP, "B": kw["B"], "bf16_ms": call_ms["none"][0]}
+
+
+def serve_smoke(cfg, params, dev, card, n_streams=7, maxd=48,
+                seconds=(0.5, 1.0)):
+    """Phase 10, the serving main path: `StreamingService` on the deep net
+    at w8a8 behind `serve_tcp`, `n_streams` concurrent `request_stream`
+    clients; returns the K1-w8a8 launches of the service runs."""
+    import threading
+
+    import torch
+
+    from qpnet_tpu_torch import serve as S
+    from qpnet_tpu_torch.bench import f0_track
+    from qpnet_tpu_torch.models.generate import StreamingGenerator
+    from qpnet_tpu_torch.ops import decode_mu_law, dilated_factor
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    up = cfg.upsampling_factor
+    rng = np.random.default_rng(10)
+    frames = [int(f) for f in rng.integers(int(seconds[0] * FS) // up + 1,
+                                           int(seconds[1] * FS) // up + 1,
+                                           size=n_streams)]
+    utts = [(rng.normal(size=(f, cfg.n_aux)).astype(np.float32),
+             dilated_factor(f0_track(rng, f, unvoiced=0.1), FS,
+                            cfg.dense_factor).astype(np.float32))
+            for f in frames]
+    kw = dict(max_streams=n_streams, maxd=maxd, min_chunk_samples=5500,
+              first_chunk_samples=1100, quantize="w8a8", devices=[dev])
+
+    def serve(mode, **gather):
+        """(per-stream (pcm, seconds to first audio, wall seconds), service
+        stats, K1-w8a8 launches) of one burst of TCP clients."""
+        K.reset_launch_count()
+        svc = S.StreamingService(params, cfg, mode=mode, **gather, **kw)
+        svc.prewarm([n_streams])
+        srv = S.serve_tcp(svc, port=0)
+        results = [None] * n_streams
+        errors = []
+
+        def client(i):
+            try:
+                t0 = time.perf_counter()
+                first, chunks = None, []
+                for c in S.request_stream(srv.server_address, *utts[i]):
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    chunks.append(c)
+                results[i] = (np.concatenate(chunks), first,
+                              time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"stream {i}: {e!r}")
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_streams)]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            svc.close()
+        check(not errors and all(not t.is_alive() for t in threads),
+              f"{mode} streams: {errors}")
+        return results, dict(svc.stats), K.w8a8_launch_count
+
+    # argmax, gathered into one group: each stream equals one direct session
+    # fed the group's padded conditioning (rows are independent in argmax)
+    res, stats, launches = serve("argmax", gather_window_s=60.0,
+                                 gather_quiet_s=30.0)
+    check(stats["groups"] == 1, f"the {n_streams} streams must form one "
+                                f"group, got {stats}")
+    F_max = max(frames)
+    B = 1 << (n_streams - 1).bit_length()
+    h = np.zeros((B, F_max, cfg.n_aux), np.float32)
+    d = np.ones((B, F_max), np.float32)
+    for i, (hi, di) in enumerate(utts):
+        h[i], d[i] = hi[-1], di[-1]
+        h[i, :len(hi)], d[i, :len(di)] = hi, di
+    direct = StreamingGenerator(params, cfg, B, maxd=maxd, mode="argmax",
+                                quantize="w8a8", device=dev).feed(h, d)
+    equal = []
+    for i, (f, (got, _, _)) in enumerate(zip(frames, res)):
+        want = np.clip(decode_mu_law(direct[i, :f * up], cfg.n_quantize)
+                       * 32768, -32768, 32767).astype(np.int16)
+        equal.append(got.dtype == np.int16 and np.array_equal(got, want))
+    phase("serve", f"{DEEP} w8a8 argmax, {n_streams} TCP streams of "
+                   f"{min(frames)}-{max(frames)} frames in one group "
+                   f"(session B={B}, maxd {maxd}, {stats['feeds']} feeds): "
+                   f"PCM equal to one direct StreamingGenerator: "
+                   f"{sum(equal)}/{n_streams}, K1-w8a8 launches {launches}")
+    check(all(equal), "served argmax PCM must equal the direct generator's")
+    check(launches > 0, "the serving path must launch K1-w8a8")
+    total = launches
+
+    # sampling: what a client sees
+    res, stats, launches = serve("sampling", gather_window_s=0.25)
+    total += launches
+    check(launches > 0, "the serving path must launch K1-w8a8")
+    ttfa = [r[1] for r in res]
+    rtf = [f * up / FS / r[2] for f, r in zip(frames, res)]
+    for f, (pcm, _, _) in zip(frames, res):
+        check(pcm.shape == (f * up,) and int(pcm.max()) > int(pcm.min()),
+              "sampled streams must be non-constant PCM of their length")
+    phase("serve", f"{DEEP} w8a8 sampling, {n_streams} TCP streams, "
+                   f"{stats['groups']} group(s), {stats['feeds']} feeds: "
+                   f"time to first audio s "
+                   f"{[round(t, 4) for t in ttfa]} (median "
+                   f"{float(np.median(ttfa)):.4f}), realtime factor per "
+                   f"stream {[round(r, 4) for r in rtf]} (median "
+                   f"{float(np.median(rtf)):.4f}), K1-w8a8 launches "
+                   f"{launches} | {card}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def deep_times(cfg, params, card, deep):
+    """Phase 11: K1 ms/step on the deep net, bf16 and w8a8, at B=7 and
+    B=64, beside the bound, the twin (B=7, from phase 9) and the device
+    time by CUDA kernel; returns {quantize: ms per phase 9 call}."""
+    from qpnet_tpu_torch import bench
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    up = cfg.upsampling_factor
+    call_ms = {}
+    for q in ("none", "w8a8"):
+        for B in (deep[q][3]["B"], 64):
+            if B != 64:
+                args, kw = deep[q][2], deep[q][3]
+            else:
+                args, maxd = bench.kernel_inputs(params, cfg, B, 4, seed=11,
+                                                 quantize=q)
+                kw = dict(B=B, maxd=maxd, n_steps=4 * up, mode="sampling",
+                          quantize=q)
+            n = kw["n_steps"]
+            ms, _ = bench.cuda_ms(lambda: K.generate(*args, **kw))
+            bound_ms, bound_by, mb, gflop, w_us = bench.k1_bound(args, B, n, q)
+            per_kernel = bench.kernel_us_per_step(args, kw, n)
+            twin = (f"plain twin {deep[q][1] / n:.3f} ms/step"
+                    if B != 64 else "plain twin not timed at this batch")
+            phase("time", f"K1-{'w8a8' if q == 'w8a8' else 'bf16'} {DEEP} "
+                          f"B={B} maxd {kw['maxd']} {n} steps: "
+                          f"{ms / n * 1e3:.2f} us/step ({ms:.3f} ms/call); "
+                          f"{twin}; bound {bound_ms / n * 1e3:.4f} us/step by "
+                          f"{bound_by} ({mb:.2f} MB once, {gflop:.1f} GFLOP "
+                          f"per call); weights once per step {w_us:.2f} us; "
+                          f"device us/step by kernel: " + (
+                              "not measured" if per_kernel is None else
+                              ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                                  per_kernel.items(), key=lambda kv: -kv[1])))
+                          + f" | {card}")
+            if B != 64:
+                call_ms[q] = (ms, bound_ms, bound_by)
+            del args
+    return call_ms
 
 
 K2_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # max |d| / max |ref|

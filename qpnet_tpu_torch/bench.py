@@ -1,13 +1,14 @@
 """Time the port's kernels on the card.
 
     python -m qpnet_tpu_torch.bench --batch 1 8 20 64 --frames 4
+    python -m qpnet_tpu_torch.bench --network Rd10Rr3Ed4Er1 --quantize w8a8
     python -m qpnet_tpu_torch.bench --train
 
 Decode (default): for each batch, one K1 call over `frames` frames of the
-default network (random weights from a seed, sampling mode, frame-constant
-d from an 80 Hz F0, maxd bucket 48), timed with CUDA events after a warm-up
-call, then the device time of each of the kernel's CUDA kernels over one
-more call, from torch.profiler.
+named network (random weights from a seed, sampling mode, frame-constant d
+from an 80 Hz F0, maxd bucket 48), bf16 or w8a8, timed with CUDA events
+after a warm-up call, beside its bound (`k1_bound`), then the device time of
+each of the kernel's CUDA kernels over one more call, from torch.profiler.
 
 --train: at B=1, T=30030 (the reference training window), for f32 and
 bf16: the K2 forward and backward ms per call (fixed layers only, and with
@@ -33,7 +34,8 @@ from qpnet_tpu_torch.models.qpnet import init_params
 from qpnet_tpu_torch.ops import dilated_factor
 from qpnet_tpu_torch.ops import gen_kernel as K
 
-KERNELS = ("embed_kernel", "gate_kernel", "out_kernel", "post_kernel")
+KERNELS = ("embed_kernel", "gate_kernel", "out_kernel", "gate_q_kernel",
+           "out_q_kernel", "post_kernel")
 
 
 def card() -> str:
@@ -49,9 +51,10 @@ def card() -> str:
 FS, F0 = 22050, 80.0
 
 
-def kernel_inputs(params, cfg, B, frames, seed=0):
+def kernel_inputs(params, cfg, B, frames, seed=0, quantize="none"):
     """((packed, cfg, bufF0, bufA0, x0, h_frames, d_frames, seed), maxd) for
-    one K1 call of `frames` frames on the parameters' device."""
+    one K1 call of `frames` frames on the parameters' device, with the
+    weights packed for `quantize`."""
     rng = np.random.default_rng(seed)
     up = cfg.upsampling_factor
     dev = params["up_w"].device
@@ -64,9 +67,36 @@ def kernel_inputs(params, cfg, B, frames, seed=0):
     h_pad, d_fr, _ = G._pallas_host_prep(cfg, h, d_gen, frames * up, dev)
     packed, bufF0, bufA0, x0 = G._prologue(
         params, cfg, torch.as_tensor(x_seed, device=dev), h_pad[0], maxd,
-        const_seed=True)
+        const_seed=True, quantize=quantize)
     return (packed, cfg, bufF0, bufA0, x0, h_pad[:frames], d_fr[:frames],
             seed), maxd
+
+
+def k1_bound(args, B, n_steps, quantize="none"):
+    """(bound_ms, bound_by, MB, GFLOP, weights_us_per_step) of one K1 call
+    with `args` (as `kernel_inputs` returns them): its inputs read once and
+    its outputs (samples, state) written once over the HBM rate, against
+    its products at the card's peak for their type (int8 for the w8a8
+    W_in/W_out products, bf16 for the rest); and the time to read the
+    packed weights once, which a step that keeps none of them on chip pays
+    every step."""
+    packed, cfg, bufF0, bufA0, x0, h_pad, d_fr, _ = args
+    L = len(cfg.dilationsF) + len(cfg.dilationsA)
+    R, S, Q = cfg.n_resch, cfg.n_skipch, cfg.n_quantize
+    weights = sum(t.numel() * t.element_size() for t in packed.values())
+    nbytes = weights + 2 * sum(t.numel() * t.element_size()
+                               for t in (bufF0, bufA0, x0))
+    nbytes += sum(t.numel() * t.element_size() for t in (h_pad, d_fr))
+    nbytes += n_steps * B * 4
+    main = n_steps * 2 * B * L * (2 * R * 2 * R + R * (S + R))
+    rest = n_steps * 2 * B * (S * S + S * Q)
+    rest += h_pad.shape[0] * 2 * B * L * K.AUX_PAD * 2 * R
+    ops_s = (main / (INT8_OP_PER_S if quantize == "w8a8" else BF16_FLOP_PER_S)
+             + rest / BF16_FLOP_PER_S)
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", nbytes / 1e6,
+            (main + rest) / 1e9, weights / HBM_BYTES_PER_S * 1e6)
 
 
 def kernel_us_per_step(args, kw, n_steps):
@@ -108,6 +138,7 @@ def step_ms(args, kw, reps=3) -> float:
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12      # f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # dense bf16 tensor-core peak
+INT8_OP_PER_S = 1979e12      # dense int8 tensor-core peak
 
 
 def f0_track(rng, n_frames: int, lo=80.0, hi=300.0, unvoiced=0.0):
@@ -320,6 +351,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, nargs="+", default=[1, 8, 20, 64])
     p.add_argument("--frames", type=int, default=4)
+    p.add_argument("--network", default="default",
+                   choices=["default", "Rd10Rr3Ed4Er1"])
+    p.add_argument("--quantize", default="none", choices=["none", "w8a8"])
     p.add_argument("--train", action="store_true",
                    help="time the training kernel and step instead")
     a = p.parse_args(argv)
@@ -327,20 +361,27 @@ def main(argv=None):
         raise SystemExit("bench: needs a CUDA device")
     if a.train:
         return train_main(card())
-    cfg = ModelConfig()
+    cfg = ModelConfig.from_network_name(a.network)
     params = init_params(0, cfg, device="cuda")
     K.build()
     name = card()
     for B in a.batch:
-        args, maxd = kernel_inputs(params, cfg, B, a.frames)
+        args, maxd = kernel_inputs(params, cfg, B, a.frames,
+                                   quantize=a.quantize)
         n = a.frames * cfg.upsampling_factor
-        kw = dict(B=B, maxd=maxd, n_steps=n, mode="sampling")
+        kw = dict(B=B, maxd=maxd, n_steps=n, mode="sampling",
+                  quantize=a.quantize)
         ms = step_ms(args, kw)
+        bound = k1_bound(args, B, n, a.quantize)
         print(json.dumps({
-            "B": B, "steps": n, "maxd": maxd, "ms_per_step": ms,
+            "network": a.network, "quantize": a.quantize, "B": B,
+            "steps": n, "maxd": maxd, "ms_per_step": ms,
             "samples_per_s": B / ms * 1e3,
+            "bound_us_per_step": bound[0] / n * 1e3, "bound_by": bound[1],
+            "weights_us_per_step": bound[4],
             "kernel_us_per_step": kernel_us_per_step(args, kw, n),
             "card": name}), flush=True)
+        del args
 
 
 if __name__ == "__main__":

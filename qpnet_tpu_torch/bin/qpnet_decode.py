@@ -64,7 +64,10 @@ def get_arguments(argv=None):
                              "kernel; xla (the scan engine) is not ported")
     parser.add_argument("--quantize", default="none",
                         choices=["none", "w8a8", "int8_weights"],
-                        help="only none is ported")
+                        help="none (bf16) and w8a8 (int8 W_in/W_out, "
+                             "dynamic int8 activations) run the CUDA "
+                             "generation kernel; int8_weights is the scan "
+                             "engine's and is not ported")
     parser.add_argument("--verbose", default=1, type=int)
     parser.add_argument("--f0_factor", default=1.0, type=float)
     parser.add_argument("--f0_dim_index", default=1, type=int)

@@ -130,8 +130,7 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """Training hyper-parameters (persisted in `model.conf`; the port does
-    not train yet)."""
+    """Training hyper-parameters (persisted in `model.conf`)."""
 
     lr: float = 1e-4
     weight_decay: float = 0.0

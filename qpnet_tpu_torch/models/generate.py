@@ -1,6 +1,7 @@
 """Autoregressive generation: ring priming, the kernel's input layout, the
-chunked kernel loop and the batch decode entry point, ported from
-`qpnet_tpu/models/generate.py` (its kernel engine).
+chunked kernel loop, the batch decode entry point and the streaming
+generator, ported from `qpnet_tpu/models/generate.py` (its kernel engine,
+bf16 and w8a8).
 
 The rings are primed by one teacher-forced f32 pass over the padded
 history (pad value n_quantize // 2, the upsampled aux of the first frame
@@ -98,20 +99,29 @@ def _prime_ring_buffers(params: Params, cfg: ModelConfig,
              for i, s in enumerate(sizesA)])
 
 
-def _prologue(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
-              h_pad0: torch.Tensor, maxd: int, const_seed: bool):
-    """Weight packing and ring priming: (packed, bufF0, bufA0, x0) in the
-    kernel's layout.  h_pad0: (B, AUX_PAD) first frame of the kernel's
-    aux input."""
-    A = cfg.n_aux
-    packed = gen_kernel.pack_weights(params, cfg)
-    h0_up = h_pad0[:, :A].float() * params["up_w"][0] + params["up_b"]
+def _kernel_state(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
+                  h0: torch.Tensor, maxd: int, const_seed: bool):
+    """Ring priming in the kernel's layout: (bufF0, bufA0, x0).  h0: (B,
+    n_aux) f32 standardized aux of the first frame."""
+    h0_up = h0 * params["up_w"][0] + params["up_b"]
     bufsF, bufsA = _prime_ring_buffers(params, cfg, x_seed, h0_up, maxd,
                                        const_seed)
     bufF0 = torch.cat([b.transpose(0, 1).to(torch.bfloat16) for b in bufsF])
     bufA0 = torch.cat([b.transpose(0, 1).to(torch.bfloat16) for b in bufsA])
     x0 = torch.stack([x_seed[:, -2], x_seed[:, -1]]).to(torch.int32)
-    return packed, bufF0.contiguous(), bufA0.contiguous(), x0.contiguous()
+    return bufF0.contiguous(), bufA0.contiguous(), x0.contiguous()
+
+
+def _prologue(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
+              h_pad0: torch.Tensor, maxd: int, const_seed: bool,
+              quantize: str = "none"):
+    """Weight packing and ring priming: (packed, bufF0, bufA0, x0) in the
+    kernel's layout.  h_pad0: (B, AUX_PAD) first frame of the kernel's
+    aux input."""
+    packed = gen_kernel.pack_weights(params, cfg, quantize)
+    return (packed, *_kernel_state(params, cfg, x_seed,
+                                   h_pad0[:, :cfg.n_aux].float(), maxd,
+                                   const_seed))
 
 
 def _pallas_host_prep(cfg: ModelConfig, h: np.ndarray, d: np.ndarray,
@@ -139,7 +149,8 @@ def _pallas_host_prep(cfg: ModelConfig, h: np.ndarray, d: np.ndarray,
 def _pallas_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
                  h: np.ndarray, d: np.ndarray, n_steps: int, maxd: int,
                  seed: int, mode: str, const_seed: bool = False,
-                 device="cuda", x_forced=None) -> np.ndarray:
+                 device="cuda", x_forced=None,
+                 quantize: str = "none") -> np.ndarray:
     """Generation through the kernel, in chunks of DECODE_CHUNK_FRAMES
     frames with carried state.  Returns (B, n_steps) int32 samples, or
     (n_steps, B, Q) f32 logits in forced mode (x_forced: (B, n_steps))."""
@@ -150,7 +161,7 @@ def _pallas_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
     packed, bufF, bufA, x0 = _prologue(
         params, cfg, torch.as_tensor(x_seed, dtype=torch.int64,
                                      device=device),
-        h_pad[0], maxd, const_seed)
+        h_pad[0], maxd, const_seed, quantize)
     xf = None
     if mode == "forced":
         xf_np = np.zeros((n_pad_steps, 1, B), np.int32)
@@ -166,7 +177,7 @@ def _pallas_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
         out, bufF, bufA, x0 = gen_kernel.generate(
             packed, cfg, bufF, bufA, x0, h_pad[f0_:f1_], d_frames[f0_:f1_],
             seed, B=B, maxd=maxd, n_steps=steps, mode=mode,
-            step_offset=off,
+            step_offset=off, quantize=quantize,
             x_forced=None if xf is None else xf[off:off + steps])
         if mode != "forced" and cfg.n_quantize <= 256:
             out = out.to(torch.uint8)  # quarters the device-to-host copy
@@ -212,11 +223,11 @@ def check_engine(engine: str, quantize: str) -> None:
         raise NotImplementedError(_ROADMAP_SCAN)
     if engine not in ("auto", "pallas"):
         raise ValueError("engine should be 'auto', 'pallas' or 'xla'")
-    if quantize in ("w8a8", "int8_weights"):
+    if quantize == "int8_weights":
         raise NotImplementedError(
-            f"quantize={quantize!r} is not ported yet: ROADMAP.md, Queue 2, "
-            "K1(b) (w8a8) and Queue 1 item 4 (int8_weights, scan engine)")
-    if quantize != "none":
+            "quantize='int8_weights' is the scan engine's scheme, not ported "
+            "yet: ROADMAP.md, Queue 1 item 4")
+    if quantize not in gen_kernel.QUANTIZE:
         raise ValueError(f"unknown quantize {quantize!r}")
 
 
@@ -235,8 +246,9 @@ def batch_fast_generate(params: Params, cfg: ModelConfig,
     Returns a list of (n_samples_i,) int32 mu-law sample arrays.
 
     engine "auto" and "pallas" both run the CUDA kernel (on a CPU device,
-    its plain twin); "xla" and the quantized schemes are not ported yet.
-    The batch runs as one kernel call per chunk, whatever its size.
+    its plain twin), in bf16 or, with quantize="w8a8", int8 weights and
+    activations; "xla" and "int8_weights" are not ported yet.  The batch
+    runs as one kernel call per chunk, whatever its size.
     """
     device = resolve_device(device)
     check_engine(engine, quantize)
@@ -260,7 +272,8 @@ def batch_fast_generate(params: Params, cfg: ModelConfig,
             "reference's continuation semantics", x.shape[1])
     samples = _pallas_path(params, cfg, x_seed, np.asarray(h, np.float32),
                            d_gen, n_steps, maxd, seed, mode,
-                           const_seed=const_seed, device=device)
+                           const_seed=const_seed, device=device,
+                           quantize=quantize)
     return [samples[i, :n] for i, n in enumerate(n_samples_list)]
 
 
@@ -281,5 +294,93 @@ def teacher_forced_logits(params: Params, cfg: ModelConfig,
     out = _pallas_path(params, cfg, x_seed, np.asarray(h, np.float32), d_gen,
                        n_steps, maxd, seed=0, mode="forced",
                        const_seed=x.shape[1] <= 1, device=device,
-                       x_forced=forced)
+                       x_forced=forced, quantize=quantize)
     return np.moveaxis(out, 0, 1)
+
+
+class StreamingGenerator:
+    """Chunked low-latency generation with carried ring state, ported from
+    the JAX package's `StreamingGenerator`.
+
+    Each `feed()` generates a whole-frame chunk of samples for B streams
+    and returns it, carrying the rings and the last two samples across
+    calls; ring slots, the upsampler phase and the sampling hash key off
+    the absolute sample index, so feeds of any whole-frame lengths continue
+    exactly.  The rings are primed from a mid-scale seed history and the
+    group's first frame, at the first feed after construction or `reset`.
+    The session runs at its own batch B on `device` (CUDA by default; a
+    CPU device runs the kernel's plain twin).  The nominal chunk is
+    `min_chunk_samples` rounded up to whole frames.
+    """
+
+    def __init__(self, params: Params, cfg: ModelConfig, B: int,
+                 maxd: int = 32, seed: int = 100, mode: str = "sampling",
+                 min_chunk_samples: int = 5500, quantize: str = "none",
+                 device="cuda"):
+        check_engine("pallas", quantize)
+        if mode not in ("sampling", "argmax"):
+            raise ValueError("mode should be sampling or argmax")
+        self.device = resolve_device(device)
+        self.cfg, self.B, self.maxd = cfg, B, maxd
+        self.seed, self.mode, self.quantize = seed, mode, quantize
+        up = cfg.upsampling_factor
+        self.chunk = -(-min_chunk_samples // up) * up
+        self.chunk_frames = self.chunk // up
+        self._params = params_to(params, self.device)
+        self._packed = gen_kernel.pack_weights(self._params, cfg, quantize)
+        self._state = None
+        self._offset = 0
+
+    def reset(self, seed: int = None) -> None:
+        """Start a new group of utterances: drop the carried ring state and
+        restart the absolute step counter, keeping the packed weights."""
+        if seed is not None:
+            self.seed = seed
+        self._state = None
+        self._offset = 0
+
+    def _prime(self, h_first_frame: np.ndarray) -> None:
+        """Rings for a constant mid-scale seed history (the recipe's decode
+        seed) and the group's first frame of aux, f32 (B, n_aux)."""
+        rf = self.cfg.receptive_field(self.maxd) + 1
+        x_seed = torch.full((self.B, rf), self.cfg.n_quantize // 2,
+                            dtype=torch.int64, device=self.device)
+        h0 = torch.as_tensor(h_first_frame, dtype=torch.float32,
+                             device=self.device)
+        self._state = _kernel_state(self._params, self.cfg, x_seed, h0,
+                                    self.maxd, const_seed=True)
+
+    def feed(self, h_frames: np.ndarray, d_frames: np.ndarray) -> np.ndarray:
+        """h_frames: (B, F, n_aux) standardized aux; d_frames: (B, F)
+        dilation factors, F >= 1.  Returns (B, F*up) int32 mu-law samples,
+        copied to the host (which waits for the card)."""
+        cfg, B = self.cfg, self.B
+        h_frames = np.asarray(h_frames, np.float32)
+        d_frames = np.asarray(d_frames, np.float32)
+        F = h_frames.shape[1] if h_frames.ndim == 3 else 0
+        if F < 1 or h_frames.shape != (B, F, cfg.n_aux):
+            raise ValueError(f"h_frames must be ({B}, F >= 1, {cfg.n_aux}), "
+                             f"got {h_frames.shape}")
+        if d_frames.shape != (B, F):
+            raise ValueError(f"d_frames must be ({B}, {F}), got "
+                             f"{d_frames.shape}")
+        if float(np.max(d_frames)) > self.maxd:
+            raise ValueError(
+                f"dilation factor {float(np.max(d_frames)):.1f} exceeds the "
+                f"session's maxd={self.maxd}; recreate the session with a "
+                f"larger maxd (ring look-backs would silently saturate)")
+        h_pad = np.zeros((F, B, gen_kernel.AUX_PAD), np.float32)
+        h_pad[:, :, :cfg.n_aux] = np.moveaxis(h_frames, 0, 1)
+        d_pad = np.moveaxis(d_frames, 0, 1)[:, None, :].copy()
+        if self._state is None:
+            self._prime(h_frames[:, 0])
+        n_steps = F * cfg.upsampling_factor
+        samples, *state = gen_kernel.generate(
+            self._packed, cfg, *self._state,
+            torch.from_numpy(h_pad).to(self.device, torch.bfloat16),
+            torch.from_numpy(d_pad).to(self.device), self.seed, B=B,
+            maxd=self.maxd, n_steps=n_steps, mode=self.mode,
+            step_offset=self._offset, quantize=self.quantize)
+        self._state = tuple(state)
+        self._offset += n_steps
+        return samples[:, 0, :].T.cpu().numpy()

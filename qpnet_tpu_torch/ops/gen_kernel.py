@@ -9,6 +9,10 @@ design and bound); on CPU tensors it runs `generate_reference`, a per-step
 loop in plain PyTorch with the same arithmetic and the same bf16 storage
 points.  Nothing else selects between the two.
 
+quantize="w8a8" is the JAX kernel's other branch (`mmq`): W_in and W_out
+are int8 with a scale per layer and output column (`pack_weights`), and
+each product quantizes its activation rows on the fly with a per-row scale.
+
 State layout (as in the JAX kernel):
   bufF (sum(dilsF), B, R) bf16: fixed rings flat-packed per layer; a layer
        reads and then overwrites slot t_abs % dil.
@@ -25,6 +29,7 @@ chunked or batch-split run gives the same bits as one call.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Any, Dict
 
 import numpy as np
@@ -34,17 +39,35 @@ from qpnet_tpu_torch.config import ModelConfig
 
 AUX_PAD = 48   # aux depth of the packed W_aux and of h_frames (zero-padded)
 MODES = {"argmax": 0, "sampling": 1, "forced": 2}
+QUANTIZE = {"none": 0, "w8a8": 1}
 
-# kernel launches made through `generate` (one per call on a CUDA tensor)
+# kernel launches made through `generate` (one per call on a CUDA tensor),
+# bf16 and w8a8 apart; serving calls it from a thread per device
 launch_count = 0
+w8a8_launch_count = 0
+_count_lock = threading.Lock()
 
 
 def reset_launch_count() -> None:
-    global launch_count
-    launch_count = 0
+    global launch_count, w8a8_launch_count
+    with _count_lock:
+        launch_count = 0
+        w8a8_launch_count = 0
 
 
-def pack_weights(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+def _q8(w: torch.Tensor):
+    """JAX's q8: w (L, K, N) f32 -> (int8 (L, K, N), f32 scales (L, 1, N))
+    with sc = max(max_k |w|, 1e-12) / 127 and qw = clip(rint(w / sc)).
+    Both divisions are elementwise between tensors: a division by a Python
+    scalar may run as a multiply by its reciprocal on the card."""
+    amax = w.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+    sc = amax / torch.full_like(amax, 127.0)
+    qw = torch.round(w / sc).clamp(-127, 127).to(torch.int8)
+    return qw, sc
+
+
+def pack_weights(params: Dict[str, Any], cfg: ModelConfig,
+                 quantize: str = "none") -> Dict[str, Any]:
     """Fuse, pad and cast the parameters into the kernel's layout, on the
     parameters' device.  Products are stored output-major ("_t": row n is
     output column n's contiguous depth), so a warp streams one column:
@@ -54,14 +77,29 @@ def pack_weights(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
       E_cat (Q, 2R) bf16 = [E_cur | E_prev]; c_all (L, 2R) f32 = b_gate +
       up_b * sum_k W_aux[k]; b_res (L, R), b_skip_sum (1, S), up_w (128,),
       b_causal (1, R), b_post1 (1, S), b_post2 (1, Q) f32.
+    quantize="w8a8" stores W_in_q_t (L, 2R, 2R) and W_out_q_t (L, S+R, R)
+    int8 in place of W_in_t and W_out_t, quantized from the f32 params as
+    the JAX package's q8 does, with their f32 column scales s_in (L, 2R)
+    and s_out (L, S+R).
     """
+    if quantize not in QUANTIZE:
+        raise ValueError(f"unknown quantize {quantize!r}")
     A = cfg.n_aux
     bf16, f32 = torch.bfloat16, torch.float32
     layers = list(params["fixed"]) + list(params["adaptive"])
     W_in = torch.stack([torch.cat([p["W_cur"], p["W_prev"]], 0)
-                        for p in layers])
+                        for p in layers]).to(f32)
     W_out = torch.stack([torch.cat([p["W_skip"], p["W_res"]], 1)
-                         for p in layers])
+                         for p in layers]).to(f32)
+    if quantize == "w8a8":
+        (qi, si), (qo, so) = _q8(W_in), _q8(W_out)
+        products = {"W_in_q_t": qi.transpose(1, 2).contiguous(),
+                    "W_out_q_t": qo.transpose(1, 2).contiguous(),
+                    "s_in": si[:, 0].contiguous(),
+                    "s_out": so[:, 0].contiguous()}
+    else:
+        products = {"W_in_t": W_in.to(bf16).transpose(1, 2).contiguous(),
+                    "W_out_t": W_out.to(bf16).transpose(1, 2).contiguous()}
     W_aux = torch.stack([torch.nn.functional.pad(p["W_aux"].to(f32),
                                                  (0, 0, 0, AUX_PAD - A))
                          for p in layers])
@@ -72,8 +110,7 @@ def pack_weights(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     up_w = torch.zeros(up_len, dtype=f32, device=up_b.device)
     up_w[: cfg.upsampling_factor] = params["up_w"].to(f32)
     return {
-        "W_in_t": W_in.to(bf16).transpose(1, 2).contiguous(),
-        "W_out_t": W_out.to(bf16).transpose(1, 2).contiguous(),
+        **products,
         "W_aux": W_aux.to(bf16).contiguous(),
         "c_all": c_all.contiguous(),
         "b_res": torch.stack([p["b_res"].to(f32) for p in layers]),
@@ -174,10 +211,30 @@ def _aux_projections(h_f: torch.Tensor, W_aux: torch.Tensor) -> torch.Tensor:
         acc = acc + h_f[None, :, k, None] * W_aux[:, None, k, :]
     return acc
 
+def _mmq(a: torch.Tensor, wq_t: torch.Tensor, sc: torch.Tensor
+         ) -> torch.Tensor:
+    """JAX's w8a8 product `mmq`: a (B, K) f32 quantized per row with
+    amax = max(max_k |a|, 1e-6) and aq = clip(rint(a * (127 / amax))), times
+    wq_t (N, K) int8 values held in f32, rescaled as
+    float(aq @ wq) * (amax * (1/127)) * sc.  Every partial sum is an integer
+    below 2^24 (|aq|, |wq| <= 127, K <= 1024), so the f32 product is exact
+    in any summation order."""
+    amax = a.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    aq = torch.round(a * (torch.full_like(amax, 127.0) / amax)).clamp(-127,
+                                                                       127)
+    return aq @ wq_t.T * (amax * (1.0 / 127.0)) * sc
+
+
 def _check_args(packed, cfg, bufF0, bufA0, x0, h_frames, d_frames, B, maxd,
-                n_steps, mode, step_offset, x_forced):
+                n_steps, mode, step_offset, x_forced, quantize):
     if mode not in MODES:
         raise ValueError("mode should be sampling, argmax or forced")
+    if quantize not in QUANTIZE:
+        raise ValueError(f"unknown quantize {quantize!r}")
+    need = "W_in_q_t" if quantize == "w8a8" else "W_in_t"
+    if need not in packed:
+        raise ValueError(f"quantize={quantize!r} needs weights packed with "
+                         f"pack_weights(..., quantize={quantize!r})")
     up = cfg.upsampling_factor
     if n_steps % up:
         raise ValueError("n_steps must cover whole frames")
@@ -210,13 +267,14 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
                        d_frames: torch.Tensor, seed: int, B: int, maxd: int,
                        n_steps: int, mode: str = "sampling",
                        step_offset: int = 0, b_offset: int = 0,
-                       x_forced=None):
+                       x_forced=None, quantize: str = "none"):
     """Plain PyTorch version of `generate` (same signature and results),
-    one step at a time on the inputs' device.  Every product sums in the
-    kernel's order (`_dot`), so on the card the two agree bit for bit where
-    the device's exp, log and tanh do."""
+    one step at a time on the inputs' device.  Every bf16 product sums in
+    the kernel's order (`_dot`) and every w8a8 sum is exact (`_mmq`), so on
+    the card the two agree bit for bit where the device's exp, log and tanh
+    do."""
     _check_args(packed, cfg, bufF0, bufA0, x0, h_frames, d_frames, B, maxd,
-                n_steps, mode, step_offset, x_forced)
+                n_steps, mode, step_offset, x_forced, quantize)
     bf16, f32 = torch.bfloat16, torch.float32
     dev = bufF0.device
     R, S, Q = cfg.n_resch, cfg.n_skipch, cfg.n_quantize
@@ -228,9 +286,25 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
     offs = np.cumsum([0] + sizes[:nF])[:-1].tolist() \
         + np.cumsum([0] + sizes[nF:])[:-1].tolist()
     # bf16 weights as f32 values: each product below is bf16 x bf16 summed
-    # in f32
-    W_in = packed["W_in_t"].to(f32)
-    W_out = packed["W_out_t"].to(f32)
+    # in f32; int8 weights as f32 values, summed exactly
+    if quantize == "w8a8":
+        W_in = packed["W_in_q_t"].to(f32)
+        W_out = packed["W_out_q_t"].to(f32)
+
+        def mm_in(x, l):
+            return _mmq(x, W_in[l], packed["s_in"][l])
+
+        def mm_out(x, l):
+            return _mmq(x, W_out[l], packed["s_out"][l])
+    else:
+        W_in = packed["W_in_t"].to(f32)
+        W_out = packed["W_out_t"].to(f32)
+
+        def mm_in(x, l):
+            return _dot(x, W_in[l])
+
+        def mm_out(x, l):
+            return _dot(x, W_out[l])
     W_aux = packed["W_aux"].to(f32)
     E_cat = packed["E_cat"].to(f32)
     W1, W2 = packed["W_post1_t"].to(f32), packed["W_post2_t"].to(f32)
@@ -265,10 +339,10 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
                     torch.int64).clamp(0, size - 1)
                 past = ring[offs[l] + (t_abs - r + 2 * size) % size, rows]
             xin = torch.cat([o, past], -1).to(f32)
-            z = _dot(xin, W_in[l]) + aux[l] * w_t + packed["c_all"][l]
+            z = mm_in(xin, l) + aux[l] * w_t + packed["c_all"][l]
             sig = torch.reciprocal(1.0 + torch.exp(-z[:, :R]))
             g = (sig * torch.tanh(z[:, R:])).to(bf16)
-            outp = _dot(g.to(f32), W_out[l])
+            outp = mm_out(g.to(f32), l)
             skip = skip + outp[:, :S]
             if l < nF:
                 ring[wslot] = o
@@ -295,7 +369,7 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 28 + [_P] + [_I] * 14 + [_P]
+_ARGTYPES = [_P] * 30 + [_P] + [_I] * 15 + [_P]
 
 
 def _lib():
@@ -315,12 +389,14 @@ def generate(packed: Dict[str, Any], cfg: ModelConfig,
              bufF0: torch.Tensor, bufA0: torch.Tensor, x0: torch.Tensor,
              h_frames: torch.Tensor, d_frames: torch.Tensor, seed: int,
              B: int, maxd: int, n_steps: int, mode: str = "sampling",
-             step_offset: int = 0, b_offset: int = 0, x_forced=None):
+             step_offset: int = 0, b_offset: int = 0, x_forced=None,
+             quantize: str = "none"):
     """Run n_steps (whole frames) of generation.
 
     h_frames (n_steps/up, B, AUX_PAD) bf16 standardized aux, zero-padded;
     d_frames (n_steps/up, 1, B) f32 frame-rate dilation factors; x_forced
-    (n_steps, 1, B) int32, required iff mode="forced".
+    (n_steps, 1, B) int32, required iff mode="forced"; quantize "none" or
+    "w8a8", as `packed` was packed.
     Returns (samples (n_steps, 1, B) int32 — or logits (n_steps, B, Q) f32
     in forced mode — bufF, bufA, x): the state after the last step, from
     which a following chunk continues exactly.
@@ -328,16 +404,20 @@ def generate(packed: Dict[str, Any], cfg: ModelConfig,
     if bufF0.device.type == "cpu":
         return generate_reference(packed, cfg, bufF0, bufA0, x0, h_frames,
                                   d_frames, seed, B, maxd, n_steps, mode,
-                                  step_offset, b_offset, x_forced)
+                                  step_offset, b_offset, x_forced, quantize)
     if bufF0.device.type != "cuda":
         raise ValueError(f"generate runs on CUDA or CPU tensors, got "
                          f"{bufF0.device}")
     _check_args(packed, cfg, bufF0, bufA0, x0, h_frames, d_frames, B, maxd,
-                n_steps, mode, step_offset, x_forced)
+                n_steps, mode, step_offset, x_forced, quantize)
     R, S, Q = cfg.n_resch, cfg.n_skipch, cfg.n_quantize
     if R % 8 or S % 8:
         raise ValueError("the CUDA kernel needs n_resch and n_skipch to be "
                          "multiples of 8 (16-byte vector loads)")
+    if quantize == "w8a8" and (R % 16 or 2 * R > 1024):
+        raise ValueError("the w8a8 kernel needs n_resch to be a multiple of "
+                         "16 (16-byte int8 loads) and at most 512 (exact "
+                         "int32 sums, quantized rows in shared memory)")
     dev = bufF0.device
     tensors = list(packed.values()) + [bufF0, bufA0, x0, h_frames, d_frames]
     if x_forced is not None:
@@ -358,11 +438,15 @@ def generate(packed: Dict[str, Any], cfg: ModelConfig,
                torch.empty((B, R), **f32), torch.empty((B, S), **f32),
                torch.empty((L, B, 2 * R), **f32),
                torch.empty((B, Q), **f32)]
-    order = ["W_in_t", "W_out_t", "W_aux", "c_all", "b_res", "b_skip_sum",
-             "up_w", "E_cat", "b_causal", "W_post1_t", "W_post2_t",
-             "b_post1", "b_post2"]
+    if quantize == "w8a8":
+        products = ["W_in_q_t", "W_out_q_t", "s_in", "s_out"]
+    else:
+        products = ["W_in_t", "W_out_t", None, None]
+    order = products + ["W_aux", "c_all", "b_res", "b_skip_sum", "up_w",
+                        "E_cat", "b_causal", "W_post1_t", "W_post2_t",
+                        "b_post1", "b_post2"]
     # the kernel reads these until it finishes: keep every tensor referenced
-    args = [packed[k].contiguous() for k in order] + [
+    args = [None if k is None else packed[k].contiguous() for k in order] + [
         bufF, bufA, x, h_frames.contiguous(), d_frames.contiguous(),
         x_forced.contiguous() if forced else None, out] + scratch
     ptrs = [None if a is None else a.data_ptr() for a in args]
@@ -374,9 +458,14 @@ def generate(packed: Dict[str, Any], cfg: ModelConfig,
             *ptrs, ctypes.cast(dils, ctypes.c_void_p),
             len(cfg.dilationsF), len(cfg.dilationsA), B, R, S, Q, AUX_PAD,
             cfg.upsampling_factor, maxd, n_steps, int(step_offset),
-            int(b_offset), int(seed), MODES[mode], stream)
+            int(b_offset), int(seed), MODES[mode], QUANTIZE[quantize],
+            stream)
     if err != 0:
         raise RuntimeError(f"gen_kernel launch failed: CUDA error {err}")
-    global launch_count
-    launch_count += 1
+    global launch_count, w8a8_launch_count
+    with _count_lock:
+        if quantize == "w8a8":
+            w8a8_launch_count += 1
+        else:
+            launch_count += 1
     return out, bufF, bufA, x

@@ -124,12 +124,69 @@ def test_cli_host_striding_with_f0_factor(expdir, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [("--engine", "xla"),
-                                   ("--quantize", "w8a8"),
+                                   ("--engine", "xla", "--quantize", "w8a8"),
                                    ("--quantize", "int8_weights"),
                                    ("--n_devices", "2")])
 def test_cli_rejects_what_is_not_ported(expdir, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         qpnet_decode.main(argv(expdir, str(tmp_path / "o"), *extra))
+
+
+def test_cli_decodes_w8a8_through_the_library(expdir, tmp_path):
+    """--quantize w8a8 writes what batch_fast_generate(quantize="w8a8")
+    gives on the CLI's batches."""
+    out = str(tmp_path / "q" / "feat_id.wav")
+    flags = ("--quantize", "w8a8", "--batch_size", "0")
+    qpnet_decode.main(argv(expdir, out, *flags))
+    wavs = read_wavs(out, expdir["feats"])
+    args = qpnet_decode.get_arguments(argv(expdir, out, *flags))
+    run_cfg = RunConfig.load(expdir["config"])
+    params = params_from_numpy(load_checkpoint(expdir["final"])["model"],
+                               "cpu")
+    (fids, x, h, n_samples, d), = qpnet_decode.decode_batches(
+        expdir["feats"], run_cfg, args, load_scaler(expdir["stats"]))
+    rows = batch_fast_generate(params, run_cfg.model, x, h, n_samples, d,
+                               seed=100, quantize="w8a8", device="cpu")
+    for fid, s in zip(fids, rows):
+        np.testing.assert_array_equal(
+            wavs[fid], np.clip(decode_mu_law(s, 256) * 32768, -32768,
+                               32767).astype(np.int16))
+
+
+@pytest.mark.parametrize("quantize", ["none", "w8a8"])
+def test_cli_decodes_a_deep_network_at_full_depth(expdir, tmp_path,
+                                                  quantize):
+    """A model.conf with the deep layout (fixed dilations to 32, the shape
+    of Rd10Rr3Ed4Er1 at a tiny width) decodes every layer: the CLI's wavs
+    equal JAX's batch_fast_generate through its kernel (interpret mode) in
+    argmax mode, from the same JAX-written checkpoint."""
+    from qpnet_tpu.models.generate import batch_fast_generate as jax_bfg
+
+    deep = dict(MODEL, dilationF_depth=6, dilationF_repeat=1)
+    cfg = JaxConfig(**deep)
+    root = tmp_path / "deep"
+    config = str(root / "model.conf")
+    JaxRunConfig(model=cfg, fs=FS).save(config)
+    params = jax_init_params(jax.random.PRNGKey(3), cfg)
+    save_final(str(root), params)
+    out = str(tmp_path / "w" / "feat_id.wav")
+    a = argv(expdir, out, "--mode", "argmax", "--quantize", quantize,
+             "--batch_size", "0")
+    a[a.index("--config") + 1] = config
+    a[a.index("--checkpoint") + 1] = str(root / "checkpoint-final.pkl")
+    qpnet_decode.main(a)
+    wavs = read_wavs(out, expdir["feats"])
+    args = qpnet_decode.get_arguments(a)
+    run_cfg = RunConfig.load(config)
+    assert len(run_cfg.model.dilationsF) == 6
+    (fids, x, h, n_samples, d), = qpnet_decode.decode_batches(
+        expdir["feats"], run_cfg, args, load_scaler(expdir["stats"]))
+    want = jax_bfg(params, cfg, x, h, n_samples, d, seed=100, mode="argmax",
+                   engine="pallas", quantize=quantize, interpret=True)
+    for fid, s in zip(fids, want):
+        np.testing.assert_array_equal(
+            wavs[fid], np.clip(decode_mu_law(np.asarray(s), 256) * 32768,
+                               -32768, 32767).astype(np.int16))
 
 
 def test_cli_defaults_to_cuda(expdir, tmp_path):

@@ -261,8 +261,10 @@ def test_decode_defaults_to_cuda_and_rejects_what_is_not_ported():
         with pytest.raises(RuntimeError, match="CUDA"):
             TG.batch_fast_generate(pt, cfg, x0, h, [n], d)
     for kw, err in (({"engine": "xla"}, NotImplementedError),
-                    ({"quantize": "w8a8"}, NotImplementedError),
+                    ({"engine": "xla", "quantize": "w8a8"},
+                     NotImplementedError),
                     ({"quantize": "int8_weights"}, NotImplementedError),
+                    ({"quantize": "int4"}, ValueError),
                     ({"engine": "scan"}, ValueError)):
         with pytest.raises(err):
             TG.batch_fast_generate(pt, cfg, x0, h, [n], d, device="cpu",
