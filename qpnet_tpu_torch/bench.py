@@ -8,7 +8,9 @@ Decode (default): for each batch, one K1 call over `frames` frames of the
 named network (random weights from a seed, sampling mode, frame-constant d
 from an 80 Hz F0, maxd bucket 48), bf16 or w8a8, timed with CUDA events
 after a warm-up call, beside its bound (`k1_bound`), then the device time of
-each of the kernel's CUDA kernels over one more call, from torch.profiler.
+each of the kernel's CUDA kernels and the device idle share over one more
+call, from torch.profiler, and the host launches of a call (one context
+kernel and one graph replay per frame).
 
 --train: at B=1, T=30030 (the reference training window), for f32 and
 bf16: the K2 forward and backward ms per call (fixed layers only, and with
@@ -34,8 +36,13 @@ from qpnet_tpu_torch.models.qpnet import init_params
 from qpnet_tpu_torch.ops import dilated_factor
 from qpnet_tpu_torch.ops import gen_kernel as K
 
-KERNELS = ("embed_kernel", "gate_kernel", "out_kernel", "gate_q_kernel",
-           "out_q_kernel", "post_kernel")
+# K1's CUDA kernels by name, each with the profiler's name for it (spaces
+# removed); prod_kernel<P, Q8>: P 0 gate, 1 out, 2 post-net 1, 3 post-net 2
+KERNELS = {"embed": "embed_kernel", "gate": "prod_kernel<0,false>",
+           "gate_q": "prod_kernel<0,true>", "out": "prod_kernel<1,false>",
+           "out_q": "prod_kernel<1,true>", "post1": "prod_kernel<2,false>",
+           "post2": "prod_kernel<3,false>", "sample": "sample_kernel",
+           "set_ctx": "set_ctx_kernel", "advance": "advance_kernel"}
 
 
 def card() -> str:
@@ -100,22 +107,52 @@ def k1_bound(args, B, n_steps, quantize="none"):
 
 
 def kernel_us_per_step(args, kw, n_steps):
-    """Device microseconds per step of each CUDA kernel over one K1 call,
-    from torch.profiler; None where the profiler saw no device time."""
+    """(device us per step of each of K1's CUDA kernels, device idle share)
+    over one K1 call, from torch.profiler's trace; (None, None) where the
+    profiler saw no kernel.  Under programmatic dependent launch a kernel
+    starts while the one before it finishes and waits for it on the card,
+    so the kernels' times add up to more than the step; the idle share is
+    the part of the call's device span that no kernel covers."""
+    import os
+    import tempfile
+
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         K.generate(*args, **kw)
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0))
-        name = next((n for n in KERNELS if n in ev.key), None)
-        if t and name:
-            out[name] = out.get(name, 0.0) + t / n_steps
-    return out or None
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    finally:
+        os.unlink(path)
+    out, spans = {}, []
+    for ev in trace.get("traceEvents", []):
+        if ev.get("cat") != "kernel" or ev.get("ph") != "X":
+            continue
+        key = ev["name"].replace(" ", "")
+        name = next((n for n, k in KERNELS.items() if k in key), None)
+        if name is None:
+            continue
+        out[name] = out.get(name, 0.0) + float(ev["dur"]) / n_steps
+        spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+    if not spans:
+        return None, None
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    span = max(b for _, b in spans) - spans[0][0]
+    return out, 1.0 - busy / span
 
 
 def step_ms(args, kw, reps=3) -> float:
@@ -373,14 +410,15 @@ def main(argv=None):
                   quantize=a.quantize)
         ms = step_ms(args, kw)
         bound = k1_bound(args, B, n, a.quantize)
+        per_kernel, idle = kernel_us_per_step(args, kw, n)
         print(json.dumps({
             "network": a.network, "quantize": a.quantize, "B": B,
             "steps": n, "maxd": maxd, "ms_per_step": ms,
             "samples_per_s": B / ms * 1e3,
             "bound_us_per_step": bound[0] / n * 1e3, "bound_by": bound[1],
             "weights_us_per_step": bound[4],
-            "kernel_us_per_step": kernel_us_per_step(args, kw, n),
-            "card": name}), flush=True)
+            "kernel_us_per_step": per_kernel, "device_idle_share": idle,
+            **K.host_launches(cfg, n), "card": name}), flush=True)
         del args
 
 

@@ -6,8 +6,9 @@ x state, with the interface and state layout of the JAX package's
 `qpnet_tpu/ops/gen_kernel.py::pallas_generate`.  On CUDA tensors it launches
 the hand-written kernel of `csrc/gen_kernel.cu` (see the note there for its
 design and bound); on CPU tensors it runs `generate_reference`, a per-step
-loop in plain PyTorch with the same arithmetic and the same bf16 storage
-points.  Nothing else selects between the two.
+loop in plain PyTorch with the kernel's arithmetic (its bf16 products
+summed in another order) and the same bf16 storage points.  Nothing else
+selects between the two.
 
 quantize="w8a8" is the JAX kernel's other branch (`mmq`): W_in and W_out
 are int8 with a scale per layer and output column (`pack_weights`), and
@@ -70,7 +71,8 @@ def pack_weights(params: Dict[str, Any], cfg: ModelConfig,
                  quantize: str = "none") -> Dict[str, Any]:
     """Fuse, pad and cast the parameters into the kernel's layout, on the
     parameters' device.  Products are stored output-major ("_t": row n is
-    output column n's contiguous depth), so a warp streams one column:
+    output column n's contiguous depth), which is the row-major layout of
+    the kernel's mma operand A (16 output columns by 16 or 32 of depth):
       W_in_t (L, 2R, 2R) = [W_cur; W_prev]^T, W_out_t (L, S+R, R) =
       [W_skip | W_res]^T, W_post1_t (S, S), W_post2_t (Q, S), all bf16;
       W_aux (L, AUX_PAD, 2R) bf16 (depth-major: one thread per column);
@@ -177,11 +179,10 @@ _WARP, _VEC = 32, 8
 
 
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, K) @ w (N, K)^T in f32, summed in the kernel's order: lane l of
-    a warp accumulates depth k = (a * 32 + l) * 8 + i for a = 0, 1, ... and
-    i = 0..7, one rounded multiply and one rounded add at a time, and the
-    32 lane sums are added by halves (the butterfly shuffles).  On the card
-    this repeats the kernel's sums bit for bit."""
+    """x (B, K) @ w (N, K)^T in f32, in a fixed order that is the same on
+    every device: lane l of 32 accumulates depth k = (a * 32 + l) * 8 + i
+    for a = 0, 1, ... and i = 0..7, one rounded multiply and one rounded add
+    at a time, and the 32 lane sums are added by halves."""
     B, K = x.shape
     N = w.shape[0]
     per = _WARP * _VEC
@@ -267,17 +268,34 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
                        d_frames: torch.Tensor, seed: int, B: int, maxd: int,
                        n_steps: int, mode: str = "sampling",
                        step_offset: int = 0, b_offset: int = 0,
-                       x_forced=None, quantize: str = "none"):
+                       x_forced=None, quantize: str = "none",
+                       f64_sums: bool = False):
     """Plain PyTorch version of `generate` (same signature and results),
-    one step at a time on the inputs' device.  Every bf16 product sums in
-    the kernel's order (`_dot`) and every w8a8 sum is exact (`_mmq`), so on
-    the card the two agree bit for bit where the device's exp, log and tanh
-    do."""
+    one step at a time on the inputs' device.  Every w8a8 sum is exact
+    (`_mmq`), and the post-net products sum in float64 and round once to
+    f32 as the kernel's do, so on the card the w8a8 branch agrees with the
+    kernel bit for bit where the device's exp, log and tanh do.  The bf16
+    W_in and W_out products sum in f32 in a fixed lane order (`_dot`); the
+    kernel's tensor cores sum in their own order, so the checks compare
+    both with f64_sums=True: every bf16 product (and the aux projections)
+    summed in float64 and rounded once to f32, with the same bf16 storage
+    points."""
     _check_args(packed, cfg, bufF0, bufA0, x0, h_frames, d_frames, B, maxd,
                 n_steps, mode, step_offset, x_forced, quantize)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
     dev = bufF0.device
     R, S, Q = cfg.n_resch, cfg.n_skipch, cfg.n_quantize
+    def dot64(x, w):
+        return (x.to(f64) @ w.to(f64).T).to(f32)
+
+    if f64_sums:
+        dot = dot64
+
+        def aux_proj(h_f, W):
+            return torch.einsum("bk,lkn->lbn", h_f.to(f64),
+                                W.to(f64)).to(f32)
+    else:
+        dot, aux_proj = _dot, _aux_projections
     up = cfg.upsampling_factor
     dilsF, dilsA = cfg.dilationsF, cfg.dilationsA
     nF = len(dilsF)
@@ -301,10 +319,10 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
         W_out = packed["W_out_t"].to(f32)
 
         def mm_in(x, l):
-            return _dot(x, W_in[l])
+            return dot(x, W_in[l])
 
         def mm_out(x, l):
-            return _dot(x, W_out[l])
+            return dot(x, W_out[l])
     W_aux = packed["W_aux"].to(f32)
     E_cat = packed["E_cat"].to(f32)
     W1, W2 = packed["W_post1_t"].to(f32), packed["W_post2_t"].to(f32)
@@ -322,7 +340,7 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
         frame = t // up
         w_t = packed["up_w"][t_abs % up]
         if t % up == 0:
-            aux = _aux_projections(h_frames[frame].to(f32), W_aux)
+            aux = aux_proj(h_frames[frame].to(f32), W_aux)
         z2 = E_cat[x[1].long()]
         o = (z2[:, :R] + e_prev + packed["b_causal"]).to(bf16)
         e_prev = z2[:, R:]
@@ -348,8 +366,8 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
                 ring[wslot] = o
             o = (o.to(f32) + outp[:, S:] + packed["b_res"][l]).to(bf16)
         u = torch.relu(skip).to(bf16).to(f32)
-        u = torch.relu(_dot(u, W1) + packed["b_post1"]).to(bf16).to(f32)
-        logits = _dot(u, W2) + packed["b_post2"]
+        u = torch.relu(dot64(u, W1) + packed["b_post1"]).to(bf16).to(f32)
+        logits = dot64(u, W2) + packed["b_post2"]
         if mode == "forced":
             out[t] = logits
             x_next = x_forced[t, 0]
@@ -369,7 +387,7 @@ def generate_reference(packed: Dict[str, Any], cfg: ModelConfig,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 30 + [_P] + [_I] * 15 + [_P]
+_ARGTYPES = [_P] * 29 + [_P] + [_I] * 15 + [_P]
 
 
 def _lib():
@@ -378,6 +396,16 @@ def _lib():
     lib.qp_generate.argtypes = _ARGTYPES
     lib.qp_generate.restype = ctypes.c_int
     return lib
+
+
+def host_launches(cfg: ModelConfig, n_steps: int) -> Dict[str, int]:
+    """What one `generate` call on the card enqueues from the host: the
+    context kernel and one graph replay per frame; and the CUDA kernels each
+    step runs inside the graph (embed, gate and out per layer, the two
+    post-net products and the sample kernel)."""
+    L = len(cfg.dilationsF) + len(cfg.dilationsA)
+    return {"host_launches": 1 + n_steps // cfg.upsampling_factor,
+            "kernels_per_step": 2 * L + 4}
 
 
 def build() -> None:
@@ -411,13 +439,12 @@ def generate(packed: Dict[str, Any], cfg: ModelConfig,
     _check_args(packed, cfg, bufF0, bufA0, x0, h_frames, d_frames, B, maxd,
                 n_steps, mode, step_offset, x_forced, quantize)
     R, S, Q = cfg.n_resch, cfg.n_skipch, cfg.n_quantize
-    if R % 8 or S % 8:
+    if R % 32 or S % 32 or Q % 16 or 2 * R > 1024:
         raise ValueError("the CUDA kernel needs n_resch and n_skipch to be "
-                         "multiples of 8 (16-byte vector loads)")
-    if quantize == "w8a8" and (R % 16 or 2 * R > 1024):
-        raise ValueError("the w8a8 kernel needs n_resch to be a multiple of "
-                         "16 (16-byte int8 loads) and at most 512 (exact "
-                         "int32 sums, quantized rows in shared memory)")
+                         "multiples of 32 (whole 32-deep mma chunks per "
+                         "depth slice), n_quantize a multiple of 16 (16-column "
+                         "tiles) and n_resch at most 512 (shared-memory "
+                         "tiles; exact int32 sums in w8a8)")
     dev = bufF0.device
     tensors = list(packed.values()) + [bufF0, bufA0, x0, h_frames, d_frames]
     if x_forced is not None:
@@ -434,7 +461,7 @@ def generate(packed: Dict[str, Any], cfg: ModelConfig,
     bf = dict(dtype=torch.bfloat16, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     scratch = [torch.empty((2, B, R), **bf), torch.empty((B, R), **bf),
-               torch.empty((B, S), **bf), torch.empty((B, S), **bf),
+               torch.empty((B, S), **bf),
                torch.empty((B, R), **f32), torch.empty((B, S), **f32),
                torch.empty((L, B, 2 * R), **f32),
                torch.empty((B, Q), **f32)]
