@@ -14,8 +14,11 @@ kernel and one graph replay per frame).
 
 --train: at B=1, T=30030 (the reference training window), for f32 and
 bf16: the K2 forward and backward ms per call (fixed layers only, and with
-the adaptive layers fused), their bounds, and the ms of a whole training
-step with each engine (xla: the plain PyTorch engine; pallas: the kernels).
+the adaptive layers fused), their bounds, the device ms of each of their
+CUDA kernels (torch.profiler), the same call's products alone through
+torch.matmul (a yardstick the port never calls), and the ms of a whole
+training step with each engine (xla: the plain PyTorch engine; pallas: the
+kernels).
 
 Prints one JSON line per measurement with the card's name and power limit.
 Needs a CUDA device.
@@ -230,11 +233,17 @@ def stack_inputs(params, cfg, batch, dtype, fused):
     return static, W, o0, h_pad, d_frames
 
 
+TF32_FLOP_PER_S = 495e12     # dense TF32 tensor-core peak
+
+
 def stack_bounds(static, B, T, dtype):
-    """{"fwd": (bound_ms, bound_by, flops, bytes), "bwd": (...)} of one K2
-    call: each input read once and each output written once over the HBM
-    rate, against its products at the card's peak for the type (f32
-    outside the tensor cores, bf16 dense tensor cores)."""
+    """{"fwd": (bound_ms, bound_by, flops, bytes, route), "bwd": (...)} of
+    one K2 call: each input read once and each output written once over the
+    HBM rate, against its products at the card's peak for the type: bf16 on
+    the tensor cores; f32 by the faster of its two routes, split TF32 on
+    the tensor cores (three TF32 products per product at 495 TFLOP/s, the
+    kernel's route) against f32 outside them at 67 TFLOP/s.  `route` names
+    the rate."""
     dilsF, dilsA, _, _, R, S = static
     L, M = len(dilsF) + len(dilsA), B * T
     K1 = 2 * R + 48
@@ -248,14 +257,57 @@ def stack_bounds(static, B, T, dtype):
     bwd_bytes = (M * R * 4 + M * S * 4 + L * act + 2 * L * act + M * 48 * e
                  + d_bytes + weights + M * R * 4 + M * 48 * 4
                  + L * (K1 * 2 * R + 2 * R + R * (S + R) + R) * 4)
-    rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    if dtype == torch.bfloat16:
+        s_per_flop, route = 1 / BF16_FLOP_PER_S, "bf16 tensor cores, 989 TFLOP/s"
+    elif 3 / TF32_FLOP_PER_S < 1 / FP32_FLOP_PER_S:
+        s_per_flop = 3 / TF32_FLOP_PER_S
+        route = "split TF32 tensor cores, 3 x FLOP at 495 TFLOP/s"
+    else:
+        s_per_flop, route = 1 / FP32_FLOP_PER_S, "f32 CUDA cores, 67 TFLOP/s"
     out = {}
     for name, fl, nb in (("fwd", flops, fwd_bytes),
                          ("bwd", 2 * flops, bwd_bytes)):
-        b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, fl / rate * 1e3
+        b_ms, o_ms = nb / HBM_BYTES_PER_S * 1e3, fl * s_per_flop * 1e3
         out[name] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms
-                     else "operations", fl, nb)
+                     else "operations", fl, nb, route)
     return out
+
+
+def stack_library_ms(static, B, T, dtype, reps=3):
+    """(fwd ms, bwd ms): a yardstick for one K2 call, its products alone
+    (per layer [o | past | h] @ W_cat and g @ W_out; g^T @ [dskip | do],
+    [dskip | do] @ W_out^T, dz @ W_cat^T and [o | past | h]^T @ dz) through
+    torch.matmul on random operands of the same shapes and type, f32 in
+    full f32 (allow_tf32 off).  The port never calls it."""
+    dilsF, dilsA, _, _, R, S = static
+    L, M = len(dilsF) + len(dilsA), B * T
+    K1 = 2 * R + 48
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    X, W, g, Wo = rand(M, K1), rand(K1, 2 * R), rand(M, R), rand(R, S + R)
+    dout, dz = rand(M, S + R), rand(M, 2 * R)
+
+    def fwd():
+        for _ in range(L):
+            X @ W
+            g @ Wo
+
+    def bwd():
+        for _ in range(L):
+            g.T @ dout
+            dout @ Wo.T
+            dz @ W.T
+            X.T @ dz
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return cuda_ms(fwd, reps)[0], cuda_ms(bwd, reps)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def cuda_ms(fn, reps: int = 3):
@@ -310,25 +362,14 @@ def _short(kernel: str) -> str:
     return k.split("(")[0].strip() or "(unnamed)"
 
 
-def train_step_profile(params, cfg, batch, engine, dtype, top=10):
-    """(device ms by kernel name for the `top` largest, device ms in all)
-    over one training step, from torch.profiler; None where it saw no
-    device time."""
+def device_ms_by_kernel(fn):
+    """{CUDA kernel name (`_short`): device ms} over one call of fn, from
+    torch.profiler; None where it saw no device time."""
     from torch.profiler import ProfilerActivity, profile
-
-    from qpnet_tpu_torch.models.qpnet import tree_map
-    from qpnet_tpu_torch.train import step as TS
-    p = tree_map(lambda t: t.detach().clone(), params)
-    tx = TS.make_optimizer()
-    state = TS.TrainState(p, tx.init(p), 0)
-    step = TS.make_train_step(cfg, tx, compute_dtype=dtype, remat=False,
-                              fixed_engine=engine)
-    b = TS.batch_to_device(batch, p["up_w"].device)
-    state, _ = step(state, b)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(state, b)
+        fn()
         torch.cuda.synchronize()
     by_name = {}
     for ev in prof.key_averages():
@@ -338,10 +379,40 @@ def train_step_profile(params, cfg, batch, engine, dtype, top=10):
                 "CUDA" in str(ev.device_type):
             key = _short(ev.key)
             by_name[key] = by_name.get(key, 0.0) + t / 1e3
-    if not by_name:
+    return by_name or None
+
+
+def train_step_profile(params, cfg, batch, engine, dtype, top=10):
+    """(device ms by kernel name for the `top` largest, device ms in all)
+    over one training step, from torch.profiler; None where it saw no
+    device time."""
+    from qpnet_tpu_torch.models.qpnet import tree_map
+    from qpnet_tpu_torch.train import step as TS
+    p = tree_map(lambda t: t.detach().clone(), params)
+    tx = TS.make_optimizer()
+    state = TS.TrainState(p, tx.init(p), 0)
+    step = TS.make_train_step(cfg, tx, compute_dtype=dtype, remat=False,
+                              fixed_engine=engine)
+    b = TS.batch_to_device(batch, p["up_w"].device)
+    state, _ = step(state, b)
+    by_name = device_ms_by_kernel(lambda: step(state, b))
+    if by_name is None:
         return None
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return dict(ranked[:top]), sum(by_name.values())
+
+
+def k2_kernels(by_name):
+    """The K2 kernels' entries of `device_ms_by_kernel` (csrc/train_kernel.cu
+    names: the products k2_gate, k2_out, k2_wgrad, k2_dgate, k2_dx and the
+    elementwise and reduction kernels), rounded to us."""
+    if by_name is None:
+        return None
+    mine = ("k2_", "bwd_prep_kernel", "round_kernel", "colsum_kernel",
+            "reduce_parts_kernel", "combine_kernel")
+    return {k: round(v, 4) for k, v in sorted(by_name.items(),
+                                                key=lambda kv: -kv[1])
+            if k.startswith(mine)}
 
 
 def train_main(name, T=30030):
@@ -363,14 +434,23 @@ def train_main(name, T=30030):
             b_ms, _ = cuda_ms(lambda: TK.stack_backward(
                 static, dtype, W, out[2], out[3], h, d, do, dsk))
             bounds = stack_bounds(static, 1, T, dtype)
+            lib_f, lib_b = stack_library_ms(static, 1, T, dtype)
             print(json.dumps({
                 "kernel": "K2", "dtype": dname, "B": 1, "T": T,
                 "layers": len(static[0]) + len(static[1]),
                 "fwd_ms": f_ms, "bwd_ms": b_ms,
                 "fwd_bound_ms": bounds["fwd"][0],
-                "bwd_bound_ms": bounds["bwd"][0],
+                "bwd_bound_ms": bounds["bwd"][0], "bound_route": bounds[
+                    "fwd"][4],
                 "fwd_tflop_per_s": bounds["fwd"][2] / f_ms / 1e9,
                 "bwd_tflop_per_s": bounds["bwd"][2] / b_ms / 1e9,
+                "fwd_device_ms_by_kernel": k2_kernels(device_ms_by_kernel(
+                    lambda: TK.stack_forward(static, dtype, W, o0, h, d))),
+                "bwd_device_ms_by_kernel": k2_kernels(device_ms_by_kernel(
+                    lambda: TK.stack_backward(static, dtype, W, out[2],
+                                              out[3], h, d, do, dsk))),
+                "library_products_only_fwd_ms": lib_f,
+                "library_products_only_bwd_ms": lib_b,
                 "card": name}), flush=True)
             del out
         for engine in ("xla", "pallas"):

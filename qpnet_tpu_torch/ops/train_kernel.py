@@ -16,12 +16,16 @@ on CPU tensors they run `fixed_stack_reference_fwd` and
 `fixed_stack_reference_bwd`, the plain twins, which follow the TPU
 kernel's arithmetic and bf16 storage points: z in f32; st and o' stored in
 the act type; g = (s * t) rounded from f32; in the backward g rebuilt from
-the stored s and t and the gate derivative chain run at the compute type's
-precision.  The backward twin is written out from the TPU kernel's math,
-not taken from autograd.  In bf16 the twins also sum every product and
-reduction in the kernel's order, so on the card the two give the same bits
-(a product of two bf16 values is exact in f32); f32 products are plain.
-Nothing else selects between kernel and twin.
+the stored s and t, [dskip | do] rounded to the compute type, and the gate
+derivative chain run at the compute type's precision.  The backward twin
+is written out from the TPU kernel's math, not taken from autograd.  The
+twins' products take operands rounded to the compute type and sum in f32
+through `torch.matmul`.  The kernels' tensor cores sum in an order no
+plain code repeats, so the checks on the card also run the twins with
+`f64_sums=True` (every product and bias-gradient sum in float64, rounded
+once to f32, at the same storage points) and hold both the bf16 kernel
+and the f32-summing twin to that.  Nothing else selects between kernel
+and twin.
 
 Inputs (as in the JAX package): o0 (B, T, R) and h_up (B, T, AUX_PAD) in
 the act type (= the compute type), d_frames (B, ceil(T/up)) f32 frame-rate
@@ -45,9 +49,16 @@ fwd_launch_count = 0
 bwd_launch_count = 0
 
 # the backward's weight gradients sum over all B*T rows in this many row
-# ranges (partials added in order: deterministic); shorter in-order sums
-# keep the f32 rounding of these cancelling sums down
-BWD_SPLITS = 64
+# ranges, whose partial sums are added in order (deterministic): 11 ranges
+# make the 24 output tiles of dW_out (R x (S+R) in 128 x 128 tiles at the
+# default widths) 264 blocks and the 72 of [dW_in; dW_aux] 792, two and six
+# per SM of the card's 132
+BWD_SPLITS = 11
+
+# the gate's weight columns as the forward kernel reads them: tile p of
+# 2 * GATE_HALF columns holds columns [p, p + 1) * GATE_HALF of the s half
+# next to the same columns of the t half
+GATE_HALF = 64
 
 
 def reset_launch_counts() -> None:
@@ -82,70 +93,26 @@ def _past(o: torch.Tensor, dil: int, rows: Optional[torch.Tensor]):
     return torch.gather(o, 1, rows[..., None].expand_as(o))
 
 
-def _mm(a, w, dtype):
-    """a (..., K) @ w (K, N) with operands rounded to `dtype`, summed in f32.
-    In bf16 the sum runs as the kernel's does, one depth at a time from
-    k = 0: a product of two bf16 values is exact in f32, so each step
-    rounds once, as the kernel's fused multiply-add does, and the two give
-    the same bits.  f32 products are plain (the sum order moves the result
-    by about 1e-6 of its scale)."""
-    a, w = a.to(dtype).float(), w.to(dtype).float()
-    if dtype == torch.float32:
-        return a @ w
-    acc = a.new_zeros(a.shape[:-1] + w.shape[1:])
-    for k in range(a.shape[-1]):
-        acc = acc + a[..., k, None] * w[k]
-    return acc
+def _mm(a, w, dtype, f64_sums=False):
+    """a (..., K) @ w (K, N) with both operands rounded to `dtype`, summed
+    in f32 by torch.matmul, or with f64_sums in float64 and rounded once
+    to f32."""
+    a, w = a.to(dtype), w.to(dtype)
+    if f64_sums:
+        return (a.double() @ w.double()).float()
+    return a.float() @ w.float()
 
 
-def n_row_splits(M: int) -> Tuple[int, int]:
-    """(rows per range, ranges) of the backward's sums over M rows, as the
-    kernel cuts them (range lengths a multiple of its 16-deep steps)."""
-    per = -(-(-(-M // BWD_SPLITS)) // 16) * 16
-    return per, -(-M // per)
+def _mm_tn(a, b, dtype, f64_sums=False):
+    """a^T @ b summed over every row of (B, T, K) and (B, T, N), as _mm."""
+    return _mm(a.reshape(-1, a.shape[-1]).T, b.reshape(-1, b.shape[-1]),
+               dtype, f64_sums)
 
 
-def _mm_tn(a, b, dtype):
-    """a^T @ b summed over every row of (B, T, K) and (B, T, N).  In bf16
-    as the kernel sums: each range of rows in order, then the ranges'
-    partial sums in order (see _mm); plain in f32."""
-    a = a.reshape(-1, a.shape[-1]).to(dtype).float()
-    b = b.reshape(-1, b.shape[-1]).to(dtype).float()
-    if dtype == torch.float32:
-        return a.T @ b
-    M = a.shape[0]
-    per, nz = n_row_splits(M)
-    pad = per * nz - M   # zero rows add exact zeros
-    a = torch.nn.functional.pad(a, (0, 0, 0, pad)).reshape(nz, per, -1)
-    b = torch.nn.functional.pad(b, (0, 0, 0, pad)).reshape(nz, per, -1)
-    acc = a.new_zeros((nz, a.shape[-1], b.shape[-1]))
-    for j in range(per):
-        acc = acc + a[:, j, :, None] * b[:, j, None, :]
-    out = torch.zeros_like(acc[0])
-    for z in range(nz):
-        out = out + acc[z]
-    return out
-
-
-COLSUM_CHUNKS = 128
-
-
-def _colsum(x):
-    """Sum over every row of (B, T, N), as the kernel sums: in order within
-    each of up to COLSUM_CHUNKS row ranges, then the ranges in order."""
-    x = x.reshape(-1, x.shape[-1]).float()
-    M = x.shape[0]
-    per = -(-M // COLSUM_CHUNKS)
-    nc = -(-M // per)
-    x = torch.nn.functional.pad(x, (0, 0, 0, per * nc - M)).reshape(
-        nc, per, -1)
-    acc = torch.zeros_like(x[:, 0])
-    for j in range(per):
-        acc = acc + x[:, j]
-    out = torch.zeros_like(acc[0])
-    for c in range(nc):
-        out = out + acc[c]
-    return out
+def _colsum(x, f64_sums=False):
+    """Sum over every row of (B, T, N), in f32 (float64 with f64_sums)."""
+    x = x.reshape(-1, x.shape[-1])
+    return (x.double() if f64_sums else x.float()).sum(0).float()
 
 
 def _gather_back(dprev, rows):
@@ -175,9 +142,10 @@ def _layer_rows(static, d_frames, T):
 
 def fixed_stack_reference_fwd(static, dtype, weights: Dict[str, torch.Tensor],
                               o0: torch.Tensor, h_up: torch.Tensor,
-                              d_frames: Optional[torch.Tensor]):
+                              d_frames: Optional[torch.Tensor],
+                              f64_sums: bool = False):
     """Plain forward: (o_out (B,T,R) act, skip (B,T,S) f32, oall (L,B,T,R)
-    act, st (L,B,T,2R) act)."""
+    act, st (L,B,T,2R) act).  f64_sums: the products sum in float64."""
     dilsF, dilsA, _, _, R, S = _unpack(static)
     B, T, _ = o0.shape
     act = dtype
@@ -189,12 +157,12 @@ def fixed_stack_reference_fwd(static, dtype, weights: Dict[str, torch.Tensor],
         oall.append(o)
         xin = torch.cat([o, _past(o, dil, rows[l]), h_up], -1)
         W = torch.cat([weights["W_in"][l], weights["W_aux"][l]], 0)
-        z = _mm(xin, W, dtype) + weights["b_gate"][l].float()
+        z = _mm(xin, W, dtype, f64_sums) + weights["b_gate"][l].float()
         s = torch.reciprocal(1.0 + torch.exp(-z[..., :R]))
         t = torch.tanh(z[..., R:])
         st.append(torch.cat([s, t], -1).to(act))
         g = (s * t).to(dtype)
-        out = _mm(g, weights["W_out"][l], dtype)
+        out = _mm(g, weights["W_out"][l], dtype, f64_sums)
         o = (o.float() + out[..., S:] + weights["b_res"][l].float()).to(act)
         skip = skip + out[..., :S]
     return o, skip, torch.stack(oall), torch.stack(st)
@@ -204,10 +172,12 @@ def fixed_stack_reference_bwd(static, dtype, weights: Dict[str, torch.Tensor],
                               oall: torch.Tensor, st: torch.Tensor,
                               h_up: torch.Tensor,
                               d_frames: Optional[torch.Tensor],
-                              do: torch.Tensor, dskip: torch.Tensor):
+                              do: torch.Tensor, dskip: torch.Tensor,
+                              f64_sums: bool = False):
     """Plain backward of the stack, from the TPU kernel's math: returns
     (do0 (B,T,R) f32, dh (B,T,AUX_PAD) f32, {"W_in", "W_aux", "b_gate",
-    "W_out", "b_res"} f32 gradients)."""
+    "W_out", "b_res"} f32 gradients).  f64_sums: the products and the bias
+    gradients sum in float64."""
     dilsF, dilsA, _, _, R, S = _unpack(static)
     dils = dilsF + dilsA
     L = len(dils)
@@ -221,20 +191,20 @@ def fixed_stack_reference_bwd(static, dtype, weights: Dict[str, torch.Tensor],
     for i in range(L - 1, -1, -1):
         o = oall[i]
         s, t = st[i][..., :R], st[i][..., R:]
-        grads["b_res"][i] = _colsum(do)
+        grads["b_res"][i] = _colsum(do, f64_sums)
         dout = torch.cat([dskip, do], -1)
         g = (s * t).to(dtype)
-        grads["W_out"][i] = _mm_tn(g, dout, dtype)
-        dg = _mm(dout, weights["W_out"][i].T, dtype)
+        grads["W_out"][i] = _mm_tn(g, dout, dtype, f64_sums)
+        dg = _mm(dout, weights["W_out"][i].T, dtype, f64_sums)
         # the gate derivative at the compute type's precision
         dgc, sc, tc = dg.to(dtype), s.to(dtype), t.to(dtype)
         u = dgc * sc
         dzc = torch.cat([dgc * tc * sc * (1 - sc), u - u * tc * tc], -1)
-        grads["b_gate"][i] = _colsum(dzc)
+        grads["b_gate"][i] = _colsum(dzc, f64_sums)
         W = torch.cat([weights["W_in"][i], weights["W_aux"][i]], 0)
-        dx = _mm(dzc, W.T, dtype)                     # (B, T, 2R + AUX_PAD)
+        dx = _mm(dzc, W.T, dtype, f64_sums)           # (B, T, 2R + AUX_PAD)
         xin = torch.cat([o, _past(o, dils[i], rows[i]), h_up], -1)
-        dW = _mm_tn(xin, dzc, dtype)
+        dW = _mm_tn(xin, dzc, dtype, f64_sums)
         grads["W_in"][i], grads["W_aux"][i] = dW[: 2 * R], dW[2 * R:]
         dprev = dx[..., R: 2 * R]
         if rows[i] is None:
@@ -254,8 +224,8 @@ def fixed_stack_reference_bwd(static, dtype, weights: Dict[str, torch.Tensor],
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_FWD_ARGTYPES = [_P] * 14 + [_I] * 11 + [_P]
-_BWD_ARGTYPES = [_P] * 19 + [_I] * 12 + [_P]
+_FWD_ARGTYPES = [_P] * 13 + [_I] * 11 + [_P]
+_BWD_ARGTYPES = [_P] * 21 + [_I] * 12 + [_P]
 
 
 def _lib():
@@ -279,6 +249,26 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def interleave_gate_columns(W: torch.Tensor, R: int) -> torch.Tensor:
+    """(..., 2R) gate weights [s | t] -> the forward kernel's column order:
+    tile p of 2 * GATE_HALF columns is s[:, p * GATE_HALF:(p + 1) *
+    GATE_HALF] then t[:, the same]."""
+    lead = W.shape[:-1]
+    return W.reshape(*lead, 2, R // GATE_HALF, GATE_HALF).transpose(
+        -3, -2).reshape(*lead, 2 * R)
+
+
+def forward_weights(weights: Dict[str, torch.Tensor], dtype,
+                    R: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's weights in the compute type, each layer's
+    depth contiguous: (W_gate_t (L, 2R, 2R + AUX_PAD), the transpose of
+    [W_in; W_aux] with its columns interleaved; W_out_t (L, S + R, R), the
+    transpose of W_out)."""
+    W_cat = torch.cat([weights["W_in"], weights["W_aux"]], 1).to(dtype)
+    return (interleave_gate_columns(W_cat, R).transpose(1, 2).contiguous(),
+            weights["W_out"].to(dtype).transpose(1, 2).contiguous())
+
+
 def _check(static, dtype, o0, h_up, d_frames, weights):
     dilsF, dilsA, maxd, up, R, S = _unpack(static)
     L = len(dilsF) + len(dilsA)
@@ -286,8 +276,9 @@ def _check(static, dtype, o0, h_up, d_frames, weights):
     dev = o0.device
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("compute dtype should be float32 or bfloat16")
-    if R < AUX_PAD:
-        raise ValueError(f"the CUDA kernel needs n_resch >= {AUX_PAD}")
+    if R % GATE_HALF or S % 8:
+        raise ValueError(f"the CUDA kernel needs n_resch a multiple of "
+                         f"{GATE_HALF} and n_skipch a multiple of 8")
     expect = {"o0": (o0, (B, T, R), dtype), "h_up": (h_up, (B, T, AUX_PAD),
                                                      dtype)}
     if dilsA:
@@ -323,9 +314,7 @@ def _launch_fwd(static, dtype, weights, o0, h_up, d_frames):
     L = len(dilsF) + len(dilsA)
     B, T = o0.shape[:2]
     dev = o0.device
-    W_cat = torch.cat([weights["W_in"], weights["W_aux"]], 1).to(
-        dtype).contiguous()
-    W_out = weights["W_out"].to(dtype).contiguous()
+    W_gate_t, W_out_t = forward_weights(weights, dtype, R)
     b_gate = weights["b_gate"].float().contiguous()
     b_res = weights["b_res"].float().contiguous()
     o0, h_up = o0.contiguous(), h_up.contiguous()
@@ -335,14 +324,13 @@ def _launch_fwd(static, dtype, weights, o0, h_up, d_frames):
     o_out = torch.empty((B, T, R), dtype=dtype, device=dev)
     skip = torch.empty((B, T, S), dtype=torch.float32, device=dev)
     g = torch.empty((B * T, R), dtype=dtype, device=dev)
-    past = torch.empty((B * T,), dtype=torch.int32, device=dev)
     dils, geo = _geometry(static, B, T, d)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qp_train_fwd(
-            *map(_ptr, (o0, h_up, d, W_cat, b_gate, W_out, b_res, oall, st,
-                        o_out, skip, g, past)),
+            *map(_ptr, (o0, h_up, d, W_gate_t, b_gate, W_out_t, b_res, oall,
+                        st, o_out, skip, g)),
             ctypes.cast(dils, ctypes.c_void_p), *geo,
             int(dtype == torch.bfloat16), stream)
     if err != 0:
@@ -381,18 +369,23 @@ def _launch_bwd(static, dtype, weights, oall, st, h_up, d_frames, do, dskip):
     db_res = torch.empty((L, R), **f32)
     dz = torch.empty((B * T, 2 * R), dtype=dtype, device=dev)
     dx = torch.empty((B * T, K1), **f32)
+    g = torch.empty((B * T, R), dtype=dtype, device=dev)
+    # bf16 copies of do (per layer) and dskip (once); f32 reads the inputs
+    bf = dtype == torch.bfloat16
+    do_c = torch.empty((B * T, R), dtype=dtype, device=dev) if bf else None
+    dskip_c = torch.empty((B * T, S), dtype=dtype, device=dev) if bf else None
     lib = _lib()
     part = torch.empty((int(lib.qp_train_part_floats(
         B, T, R, S, AUX_PAD, BWD_SPLITS)),), **f32)
-    past = torch.empty((B * T,), dtype=torch.int32, device=dev)
     dils, geo = _geometry(static, B, T, d)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.qp_train_bwd(
             *map(_ptr, (do, dskip, oall, st, h_up, d, W_cat, W_out, dwork, dh,
-                        dW_cat, db_gate, dW_out, db_res, dz, dx, part, past)),
-            ctypes.cast(dils, ctypes.c_void_p), *geo,
-            int(dtype == torch.bfloat16), BWD_SPLITS, stream)
+                        dW_cat, db_gate, dW_out, db_res, dz, dx, part, g, do_c,
+                        dskip_c)),
+            ctypes.cast(dils, ctypes.c_void_p), *geo, int(bf), BWD_SPLITS,
+            stream)
     if err != 0:
         raise RuntimeError(f"train_kernel backward failed: CUDA error {err}")
     global bwd_launch_count
