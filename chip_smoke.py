@@ -57,7 +57,28 @@ Phases, each reported on its own line; any failure exits non-zero:
      K1-w8a8 must have been launched;
  11. times: K1 ms/step on the deep net, bf16 and w8a8, at B=7 and B=64,
      beside the bound, the twin, the host launches per step and the device
-     time by CUDA kernel and idle share.
+     time by CUDA kernel and idle share;
+ 12. the scan engine (plain PyTorch, no kernel) at the default network's
+     full width, B=8, 4 frames, d interpolated between frames (so it varies
+     within frames, maxd bucket 48): `engine="auto"` must take the scan (K1
+     not launched), sampling twice with one seed bit-identical; forced
+     logits of the f32 scan within 1e-4 of scale of the f32 forward
+     replayed over the same stream, int8_weights against bf16 relative
+     RMSE < 0.10 and argmax agreement > 0.90, bf16 against f32 argmax
+     agreement >= 0.98; a bf16 argmax run replayed through the forward
+     agrees on >= 0.85 of its first 40 samples; then scan ms/step at B=8
+     and 20 in f32, bf16 and int8_weights (median, lowest and highest of
+     5 calls of one frame each) beside K1's us/step;
+ 13. validation over in-memory windows (`qpnet_validate.validation_loss`
+     equal to the mean of `make_eval_step`'s losses; two appends of the
+     result file read back), and a synthetic reference state_dict at the
+     default widths through `convert_checkpoint.main`: leaves equal to
+     `convert_state_dict`'s bit for bit, loaded onto the card and decoded
+     for 2 frames through K1 (launched, outputs finite);
+ 14. `tools/serve_soak.run_soak` on the default network, bf16, 8 streams,
+     one minute of 1.0 s utterances: ok, completions, K1 launched; its
+     summary JSON, prewarmed group sizes and chunk latencies.
+Each main path (phases 4, 7, 10, 12-14) also prints its peak device memory.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
@@ -235,6 +256,11 @@ def main() -> int:
     kernels = smoke(ModelConfig(), dev, card)
     kernels += train_smoke(ModelConfig(), dev, card)
     kernels.insert(1, deep_main(dev, card))
+    scan_smoke(ModelConfig(), dev, card)
+    kernels[0]["launches_by_path"] = {
+        "decode": kernels[0]["launches"],
+        "converted_decode": tools_smoke(ModelConfig(), dev, card),
+        "soak": soak_smoke(dev, card)}
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -299,6 +325,7 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
         int(seconds[0] * FS) // up + 1, int(seconds[1] * FS) // up + 1,
         size=B))
     x, h, n_samples, d = make_inputs(rng, cfg, frames)
+    torch.cuda.reset_peak_memory_stats()
     K.reset_launch_count()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -306,6 +333,7 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
                                 mode="sampling", device=dev)
     wall = time.perf_counter() - t0
     launches = K.launch_count
+    mem4 = peak_mib(dev)
     check(launches > 0, "the main path must launch K1")
     with tempfile.TemporaryDirectory() as tmp:
         for i, s in enumerate(out):
@@ -325,7 +353,7 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
                   f"{wall:.3f} s wall, {total} samples, "
                   f"{total / wall:.1f} samples/s ({B * n_pad_steps} padded "
                   f"steps x rows, {n_pad_steps} steps), K1 launches "
-                  f"{launches} | {card}")
+                  f"{launches}, peak device memory {mem4:.1f} MiB | {card}")
 
     # 5. one K1 call at the main path's batch and maxd bucket, 4 frames:
     # held against the twins in forced mode, then timed and profiled
@@ -491,6 +519,7 @@ def serve_smoke(cfg, params, dev, card, n_streams=7, maxd=48,
     def serve(mode, **gather):
         """(per-stream (pcm, seconds to first audio, wall seconds), service
         stats, K1-w8a8 launches) of one burst of TCP clients."""
+        torch.cuda.reset_peak_memory_stats()
         K.reset_launch_count()
         svc = S.StreamingService(params, cfg, mode=mode, **gather, **kw)
         svc.prewarm([n_streams])
@@ -571,7 +600,8 @@ def serve_smoke(cfg, params, dev, card, n_streams=7, maxd=48,
                    f"{float(np.median(ttfa)):.4f}), realtime factor per "
                    f"stream {[round(r, 4) for r in rtf]} (median "
                    f"{float(np.median(rtf)):.4f}), K1-w8a8 launches "
-                   f"{launches} | {card}")
+                   f"{launches}, peak device memory {peak_mib(dev):.1f} MiB"
+                   f" | {card}")
     torch.cuda.empty_cache()
     return total
 
@@ -772,6 +802,7 @@ def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
             batch_size=1, max_length=max_length)
 
     with tempfile.TemporaryDirectory() as expdir:
+        torch.cuda.reset_peak_memory_stats()
         TK.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -801,7 +832,8 @@ def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
                   f"{wall:.3f} s wall (build and checkpoints included), K2 "
                   f"launches fwd {launches[0]} bwd {launches[1]}; "
                   f"checkpoint-final.pkl and checkpoint-{steps}.pkl reload "
-                  f"equal | {card}")
+                  f"equal; peak device memory {peak_mib(dev):.1f} MiB | "
+                  f"{card}")
     b_np.pop("window_lens")
     b = TS.batch_to_device(b_np, dev)
     # one step's loss and gradients with each engine, and with the plain
@@ -903,6 +935,341 @@ def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
              bound_by=bounds["bwd"][1], library_ms=lib_ms[1], bf16_ms=bf[1],
              bf16_bound_ms=bf[4]["bwd"][0], bf16_library_ms=bf[6][1],
              train_step_ms=steps_ms)]
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14: the scan engine, validation and conversion, the soak
+# ---------------------------------------------------------------------------
+
+SCAN_F32_TOL = 1e-4          # f32 scan against the f32 forward, of scale
+
+
+def peak_mib(dev) -> float:
+    """Peak device memory (MiB) since the last reset, from the profiler's
+    snapshot (`torch.cuda.max_memory_allocated`)."""
+    from qpnet_tpu_torch.utils.profiler import device_memory_stats
+    stats = device_memory_stats()[f"cuda:{dev.index or 0}"]
+    return stats["peak_bytes_in_use"] / 2 ** 20
+
+
+def median_ms(fn, calls=5):
+    """(median, lowest, highest) ms of `calls` calls of fn after a warm-up
+    call, each timed alone with CUDA events."""
+    import torch
+    fn()
+    ms = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    return float(np.median(ms)), min(ms), max(ms)
+
+
+def varying_d(rng, cfg, B, F):
+    """(B, F * up) sample-rate dilation factors interpolated between the
+    frames of F0 tracks in 80-300 Hz with 10% unvoiced frames, so d varies
+    within frames, as a continuous F0 does.  The first row starts at 80 Hz
+    (d = 34.5), which puts the batch in the maxd bucket 48."""
+    from qpnet_tpu_torch.bench import f0_track
+    from qpnet_tpu_torch.ops import dilated_factor
+    up = cfg.upsampling_factor
+    f0 = np.stack([f0_track(rng, F, unvoiced=0.1) for _ in range(B)])
+    f0[0, 0] = 80.0
+    t = np.arange(F * up) / up
+    return np.stack([np.interp(t, np.arange(F), dilated_factor(
+        row, FS, cfg.dense_factor)) for row in f0]).astype(np.float32)
+
+
+def replay_logits(params, cfg, xs, h, d):
+    """The tests/test_generate.py replay: the f32 teacher-forced forward
+    over [mid-scale history of rf, the seed, xs[:, :-1]], with the first
+    frame's upsampled aux and d = 1 over the history.  Returns the (B, n,
+    Q) logits step i of a generation with a mid-scale seed would give."""
+    import torch
+
+    from qpnet_tpu_torch.models.generate import bucket_maxd
+    from qpnet_tpu_torch.models.qpnet import forward, upsample_aux
+    B, n = xs.shape
+    dev = params["up_w"].device
+    rf = cfg.receptive_field(bucket_maxd(float(np.ceil(d.max()))))
+    x_full = np.concatenate([np.full((B, rf + 1), cfg.n_quantize // 2),
+                             xs[:, :-1]], 1)
+    h_up = upsample_aux(params, torch.as_tensor(h, device=dev),
+                        cfg.upsampling_factor)
+    h_up = torch.cat([h_up[:, :1].expand(B, rf, -1), h_up[:, :n]], 1)
+    d_full = np.concatenate([np.ones((B, rf)), d[:, :n]], 1)
+    with torch.no_grad():
+        return forward(params, cfg, torch.as_tensor(x_full, device=dev),
+                       None, torch.as_tensor(d_full, dtype=torch.float32,
+                                             device=dev),
+                       h_up=h_up)[:, rf:rf + n].cpu().numpy()
+
+
+def scan_smoke(cfg, dev, card, B=8, F=4):
+    """Phase 12: the scan engine on the card, default network at full
+    width, B=8, 4 frames, d varying within frames (maxd bucket 48)."""
+    import torch
+
+    from qpnet_tpu_torch import bench
+    from qpnet_tpu_torch.models import generate as G
+    from qpnet_tpu_torch.models.qpnet import init_params
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    f32, bf16 = torch.float32, torch.bfloat16
+    up, Q = cfg.upsampling_factor, cfg.n_quantize
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(0, cfg, device=dev)
+    rng = np.random.default_rng(12)
+    n = F * up
+    h = rng.normal(size=(B, F, cfg.n_aux)).astype(np.float32)
+    d = varying_d(rng, cfg, B, F)
+    x0 = np.full((B, 1), Q // 2, np.int32)
+    maxd = G.bucket_maxd(float(np.ceil(d.max())))
+    check(maxd == 48 and not G._frame_constant(d, up)
+          and G._use_scan("auto", "none", d, up),
+          f"phase 12's d must vary within frames in bucket 48 ({maxd})")
+
+    # the route: auto takes the scan for this d, and K1 never launches;
+    # sampling twice with one seed is bit-identical
+    K.reset_launch_count()
+    kw = dict(seed=100, mode="sampling", device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = G.batch_fast_generate(params, cfg, x0, h, [n - 1] * B, d, **kw)
+    wall = time.perf_counter() - t0
+    two = G.batch_fast_generate(params, cfg, x0, h, [n - 1] * B, d, **kw)
+    same = all(np.array_equal(a, b) for a, b in zip(one, two))
+    check(K.launch_count == 0, "auto must route this input to the scan")
+    check(same, "scan sampling twice with one seed must be bit-identical")
+    phase("scan", f"auto with d in [{d.min():.3f}, {d.max():.3f}] varying "
+                  f"within frames ran the scan (K1 launches 0), B={B} "
+                  f"{n - 1} steps bf16 sampling in {wall:.3f} s; twice "
+                  f"with seed 100 bit-identical: {same}")
+
+    # forced logits: f32 against the f32 forward, int8_weights against
+    # bf16, bf16 against f32
+    xf = rng.integers(0, Q, (B, n)).astype(np.int32)
+    logits = {}
+    for name, dt, q in (("f32", f32, "none"), ("bf16", bf16, "none"),
+                        ("int8_weights", bf16, "int8_weights")):
+        logits[name] = G.teacher_forced_logits(
+            params, cfg, x0, h, xf, d, compute_dtype=dt, quantize=q,
+            device=dev)
+        check(np.isfinite(logits[name]).all(), f"scan {name} logits finite")
+    ref = replay_logits(params, cfg, xf, h, d)
+    f32_err = float(np.abs(logits["f32"] - ref).max() / np.abs(ref).max())
+    q, b = logits["int8_weights"], logits["bf16"]
+    q_rel = float(np.sqrt(np.mean((q - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+    q_agree = float((q.argmax(-1) == b.argmax(-1)).mean())
+    b_agree = float((b.argmax(-1) == logits["f32"].argmax(-1)).mean())
+    phase("scan", f"forced {n} steps: f32 against the f32 forward max |d| / "
+                  f"max |ref| {f32_err:.3e} (tol {SCAN_F32_TOL}); "
+                  f"int8_weights against bf16 relative RMSE {q_rel:.4f} "
+                  f"(max {W8A8_RMSE_MAX}), argmax agreement {q_agree:.4f} "
+                  f"(min {W8A8_AGREE_MIN}); bf16 against f32 argmax "
+                  f"agreement {b_agree:.4f} (min {ARGMAX_AGREE_MIN})")
+    check(f32_err <= SCAN_F32_TOL, f"f32 scan off the forward: {f32_err}")
+    check(q_rel < W8A8_RMSE_MAX and q_agree > W8A8_AGREE_MIN,
+          f"int8_weights against bf16: {q_rel}, {q_agree}")
+    check(b_agree >= ARGMAX_AGREE_MIN, f"bf16 against f32: {b_agree}")
+
+    # argmax (bf16, the default) replayed through the f32 forward
+    am = np.stack(G.batch_fast_generate(params, cfg, x0, h, [n - 1] * B, d,
+                                        mode="argmax", device=dev))
+    pred = replay_logits(params, cfg, am, h, d).argmax(-1)
+    agree = float((pred[:, :40] == am[:, :40]).mean())
+    phase("scan", f"argmax bf16 {n - 1} steps replayed through the f32 "
+                  f"forward: 40-sample agreement {agree:.3f} (min "
+                  f"{AGREE_MIN}), all steps {float((pred == am).mean()):.3f}")
+    check(agree >= AGREE_MIN, f"scan argmax replay agreement {agree}")
+    phase("mem", f"phase 12 (scan) peak device memory "
+                 f"{peak_mib(dev):.1f} MiB | {card}")
+
+    # ms/step beside K1's us/step at the same batch
+    steps = up
+    for Bt in (8, 20):
+        args, kmaxd = bench.kernel_inputs(params, cfg, Bt, 4, seed=12)
+        k_ms, _ = bench.cuda_ms(lambda: K.generate(
+            *args, B=Bt, maxd=kmaxd, n_steps=4 * up, mode="sampling"))
+        del args
+        xs = torch.full((Bt, cfg.receptive_field(kmaxd) + 1), Q // 2,
+                        dtype=torch.long, device=dev)
+        hs = torch.as_tensor(rng.normal(size=(Bt, 1, cfg.n_aux)),
+                             dtype=f32, device=dev)
+        ds = torch.as_tensor(varying_d(rng, cfg, Bt, 1), device=dev)
+        gen = torch.Generator(device=dev)
+        times = []
+        for name, dt, q in (("f32", f32, "none"), ("bf16", bf16, "none"),
+                            ("int8_weights", bf16, "int8_weights")):
+            def run():
+                with torch.no_grad():
+                    return G._generate_scan(params, cfg, xs, hs, ds, steps,
+                                            kmaxd, "sampling", dt, q, True,
+                                            generator=gen)
+            med, lo, hi = median_ms(run)
+            times.append(f"{name} {med / steps:.3f} ({lo / steps:.3f}-"
+                         f"{hi / steps:.3f})")
+        k_us = k_ms / (4 * up) * 1e3
+        phase("time", f"scan B={Bt} maxd {kmaxd} sampling, ms/step, median "
+                      f"(lowest-highest) of 5 calls of {steps} steps: "
+                      f"{', '.join(times)}; K1 (bf16) {k_us:.2f} us/step at "
+                      f"the same B | {card}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def reference_state_dict(cfg, seed):
+    """A random state_dict in the reference's layout (the keys of
+    tools/convert_checkpoint.py's docstring) at cfg's widths: each weight
+    normal over sqrt(fan in), each bias normal x 0.01."""
+    import torch
+    Q, A, R, S = cfg.n_quantize, cfg.n_aux, cfg.n_resch, cfg.n_skipch
+    shapes = {"causal.conv": (R, Q, 2),
+              "upsampling.conv": (1, 1, 1, cfg.upsampling_factor)}
+    for i in range(len(cfg.dilationsF)):
+        for br in ("sigmoid", "tanh"):
+            shapes[f"dilF_{br}.{i}.conv"] = (R, R, 2)
+            shapes[f"auxF_1x1_{br}.{i}"] = (R, A, 1)
+        shapes[f"skipF_1x1.{i}"] = (S, R, 1)
+        shapes[f"resF_1x1.{i}"] = (R, R, 1)
+    for i in range(len(cfg.dilationsA)):
+        for br in ("sigmoid", "tanh"):
+            shapes[f"dilA_{br}.{i}.convC"] = (R, R, 1)
+            shapes[f"dilA_{br}.{i}.convP"] = (R, R, 1)
+            shapes[f"auxA_1x1_{br}.{i}"] = (R, A, 1)
+        shapes[f"skipA_1x1.{i}"] = (S, R, 1)
+        shapes[f"resA_1x1.{i}"] = (R, R, 1)
+    shapes["conv_post_1"] = (S, S, 1)
+    shapes["conv_post_2"] = (Q, S, 1)
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, shape in shapes.items():
+        fan = int(np.prod(shape[1:]))
+        sd[key + ".weight"] = torch.randn(shape, generator=gen) / fan ** 0.5
+        sd[key + ".bias"] = 0.01 * torch.randn(
+            (1 if key == "upsampling.conv" else shape[0],), generator=gen)
+    return sd
+
+
+def tools_smoke(cfg, dev, card):
+    """Phase 13: validation over in-memory windows, and a synthetic
+    reference checkpoint converted, loaded onto the card and decoded
+    through K1; returns the K1 launches of the converted decode."""
+    import torch
+
+    from qpnet_tpu_torch.bin import qpnet_validate as V
+    from qpnet_tpu_torch.config import RunConfig
+    from qpnet_tpu_torch.data import batcher as DB
+    from qpnet_tpu_torch.models import generate as G
+    from qpnet_tpu_torch.models.qpnet import init_params, params_from_numpy
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    from qpnet_tpu_torch.tools import convert_checkpoint as C
+    from qpnet_tpu_torch.train import step as TS
+    from qpnet_tpu_torch.train.checkpoint import load_checkpoint
+    from qpnet_tpu_torch.train.trainer import read_validation_record
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(0, cfg, device=dev)
+    utts, scaler = memory_corpus(cfg, seed=13)
+
+    def windows():
+        return DB.window_batches(
+            DB.utterance_stream(utts, lambda u: u, shuffle=False,
+                                loop=False), cfg,
+            feat_transform=scaler.transform, batch_length=20000,
+            batch_size=1, max_length=30000)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, losses = V.validation_loss(params, cfg, windows(), dev)
+    wall = time.perf_counter() - t0
+    step = TS.make_eval_step(cfg)
+    want = [float(step(params, TS.batch_to_device(
+        {k: v for k, v in b.items() if k != "window_lens"}, dev)))
+        for b in windows()]
+    check(len(losses) >= 2 and losses == want
+          and mean == float(np.mean(want)) and np.isfinite(mean),
+          f"validation loss {mean} {losses} against eval steps {want}")
+    with tempfile.TemporaryDirectory() as tmp:
+        V.record_result(tmp, "checkpoint-1000.pkl", mean)
+        path = V.record_result(tmp, "checkpoint-final.pkl", mean + 1.0)
+        rec = read_validation_record(path)
+        check(rec == {"checkpoint-1000.pkl": mean,
+                      "checkpoint-final.pkl": mean + 1.0},
+              f"validation record {rec}")
+        phase("tools", f"validation over {len(losses)} in-memory windows "
+                       f"(T=30030, f32): mean loss {mean:.6f} = the mean of "
+                       f"make_eval_step's, {wall:.3f} s; two appends read "
+                       f"back with both keys")
+        del params
+        torch.cuda.empty_cache()
+
+        # conversion: the reference's state_dict at the default widths
+        ref, out = os.path.join(tmp, "ref.pkl"), os.path.join(tmp, "ck.pkl")
+        conf = os.path.join(tmp, "model.conf")
+        torch.save({"model": reference_state_dict(cfg, seed=13)}, ref)
+        C.main(["--checkpoint", ref, "--out", out, "--config", conf])
+        model = load_checkpoint(out)["model"]
+        want = C.convert_state_dict(C.load_torch_checkpoint(ref), cfg)
+        la, lb = TS.tree_leaves(model), TS.tree_leaves(want)
+        check(len(la) == len(lb) and all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(la, lb)), "converted leaves bit for bit")
+        check(RunConfig.load(conf).model == cfg, "converted model.conf")
+    params = params_from_numpy(model, dev)
+    rng = np.random.default_rng(13)
+    x, h, n_samples, d = make_inputs(rng, cfg, [2, 2])
+    xf = rng.integers(0, cfg.n_quantize, (2, 2 * cfg.upsampling_factor))
+    K.reset_launch_count()
+    samples = G.batch_fast_generate(params, cfg, x, h, n_samples, d,
+                                    seed=100, device=dev)
+    logits = G.teacher_forced_logits(params, cfg, x, h, xf, d,
+                                     engine="pallas", device=dev)
+    launches = K.launch_count
+    s = np.stack(samples)
+    check(launches > 0, "the converted decode must launch K1")
+    check(s.min() >= 0 and s.max() < cfg.n_quantize
+          and np.isfinite(logits).all(), "converted decode outputs")
+    phase("tools", f"converted {len(la)} leaves equal convert_state_dict's "
+                   f"bit for bit; decoded 2 frames at B=2 through K1 "
+                   f"(launches {launches}): samples in [{s.min()}, "
+                   f"{s.max()}], forced logits finite, max |logit| "
+                   f"{float(np.abs(logits).max()):.3f}")
+    phase("mem", f"phase 13 (validation, conversion) peak device memory "
+                 f"{peak_mib(dev):.1f} MiB | {card}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def soak_smoke(dev, card):
+    """Phase 14: the serving soak on the default net, bf16, 8 streams, one
+    minute of 1.0 s utterances; returns K1's launches in it."""
+    import torch
+
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    from qpnet_tpu_torch.tools.serve_soak import run_soak
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_count()
+    out = run_soak(minutes=1.0, streams=8, seconds=1.0, device=dev,
+                   verbose=False)
+    launches = K.launch_count
+    phase("soak", "summary " + json.dumps(out))
+    phase("soak", f"default net bf16, 8 streams, 1 min of 1.0 s "
+                  f"utterances: ok {out['ok']}, {out['completions']} "
+                  f"completions, prewarmed group sizes "
+                  f"{out['prewarmed_buckets']} in {out['prewarm_s']} s, "
+                  f"chunk latency median {out['chunk_latency_ms_median']} "
+                  f"ms, p99 {out['chunk_latency_ms_p99']} ms, drift "
+                  f"{out['chunk_latency_drift']}, RSS growth "
+                  f"{out['rss_growth_mib']} MiB, K1 launches {launches}, "
+                  f"peak device memory {peak_mib(dev):.1f} MiB | {card}")
+    check(out["ok"] and out["completions"] > 0, f"soak: {out}")
+    check(launches > 0, "the soak must launch K1")
+    torch.cuda.empty_cache()
+    return launches
 
 
 if __name__ == "__main__":

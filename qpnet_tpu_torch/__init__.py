@@ -2,24 +2,29 @@
 
 A second package beside the JAX one, with the same configs, `model.conf`
 JSON, checkpoint pickles, h5 schema and CLI argv.  It imports neither JAX
-nor `qpnet_tpu`.  Ported so far: autoregressive decoding of the kernel
-engine (bf16 and w8a8, the default and the deep `Rd10Rr3Ed4Er1` network),
-streaming generation, the `Vocoder` API and the TCP serving stack, and
-single-GPU training with either engine (ROADMAP.md lists the rest).
+nor `qpnet_tpu`.  Ported so far: autoregressive decoding through the
+generation kernel (bf16 and w8a8, the default and the deep
+`Rd10Rr3Ed4Er1` network) and through the scan engine (f32, bf16,
+int8_weights, d varying within frames), streaming generation, the
+`Vocoder` API and the TCP serving stack, single-GPU training with either
+engine, validation, reference-checkpoint conversion and the serving soak
+(ROADMAP.md lists the rest).
 
   config.py   model, feature and training configuration
   ops/        mu-law, pitch factors, the generation kernel (K1), the fused
               training stack (K2) and their plain twins; csrc/ holds the
               CUDA sources, built at first use
   models/     parameters, teacher-forced forward (plain or through K2),
-              ring priming, the chunked decode loop and the streaming
-              generator
+              ring priming, the chunked kernel loop, the scan engine and
+              the streaming generator
   api.py      `Vocoder`: an experiment directory as one object
   serve.py    batched streaming service and its TCP protocol
   data/       h5 feature reads, file lists, feature scaler, the training
               window batcher
   train/      checkpoints, the train step (loss, Adam) and the trainer loop
-  bin/        the decode, serve, train and update CLIs
+  bin/        the decode, serve, train, update and validate CLIs
+  tools/      reference-checkpoint conversion, the serving soak
+  utils/      logging, profiler hooks and device memory snapshots
 """
 
 __version__ = "0.1.0"

@@ -12,7 +12,9 @@ dilation factors from the optionally F0-scaled track, mu-law-zero seed and
 `stream()` yields audio chunks while the card generates them, through the
 `StreamingGenerator` that the serving stack (qpnet_tpu_torch/serve.py) uses.
 Everything runs on `device` (CUDA by default; "cpu" runs the kernel's plain
-twin).
+twin).  `engine` and `quantize` take what `batch_fast_generate` takes: the
+scan engine ("xla", "int8_weights") serves `synthesize`; `stream` runs the
+kernel, so it refuses "int8_weights".
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from qpnet_tpu_torch.ops import decode_mu_law, dilated_factor, encode_mu_law
 
 _ROADMAP_ANALYSIS = ("WORLD analysis (the feature frontend of analyze and "
                      "vocode) is not ported yet: ROADMAP.md, Queue 1 items "
-                     "9-10")
+                     "5 and 7")
 
 
 class Vocoder:
@@ -132,7 +134,7 @@ class Vocoder:
 
     def synthesize_batch(self, feats_list: Sequence[np.ndarray],
                          f0_factor: float = 1.0) -> List[np.ndarray]:
-        """Batch synthesis through the generation kernel, one batch for all
+        """Batch synthesis through the vocoder's engine, one batch for all
         utterances.  They may differ in length; outputs come back in input
         order."""
         from qpnet_tpu_torch.models.generate import batch_fast_generate

@@ -1,9 +1,9 @@
 """Batch AR decoding worker: sorts utterances by feature length, batches
 them, seeds with a single mu-law zero, optionally scales F0 (recomputing the
 pitch-dependent dilation factors from the scaled track), generates through
-the CUDA generation kernel, then mu-law-decodes and writes int16 wavs into
-the `feat_id` path template.  Same argv as `qpnet_tpu.bin.qpnet_decode`,
-plus --device.
+the CUDA generation kernel or the scan engine (--engine, --quantize,
+--dtype), then mu-law-decodes and writes int16 wavs into the `feat_id` path
+template.  Same argv as `qpnet_tpu.bin.qpnet_decode`, plus --device.
 
   python -m qpnet_tpu_torch.bin.qpnet_decode --feats <dir|list> \\
       --stats stats.h5 --config model.conf --checkpoint checkpoint-final.pkl \\
@@ -60,14 +60,19 @@ def get_arguments(argv=None):
                         help="this process's index in [0, n_hosts)")
     parser.add_argument("--engine", default="auto",
                         choices=["auto", "pallas", "xla"],
-                        help="auto and pallas run the CUDA generation "
-                             "kernel; xla (the scan engine) is not ported")
+                        help="pallas: the CUDA generation kernel (bf16 or "
+                             "w8a8); xla: the scan engine, plain PyTorch "
+                             "step by step in --dtype (float32 is the "
+                             "parity mode), which also takes d varying "
+                             "within frames and int8_weights; auto: the "
+                             "kernel, or the scan where only it applies")
     parser.add_argument("--quantize", default="none",
                         choices=["none", "w8a8", "int8_weights"],
-                        help="none (bf16) and w8a8 (int8 W_in/W_out, "
-                             "dynamic int8 activations) run the CUDA "
-                             "generation kernel; int8_weights is the scan "
-                             "engine's and is not ported")
+                        help="none: bf16 in the kernel, --dtype in the "
+                             "scan; w8a8: the kernel with int8 W_in/W_out "
+                             "and dynamic int8 activations; int8_weights: "
+                             "the scan with int8 W_in/W_out dequantized per "
+                             "column (weight-only)")
     parser.add_argument("--verbose", default=1, type=int)
     parser.add_argument("--f0_factor", default=1.0, type=float)
     parser.add_argument("--f0_dim_index", default=1, type=int)
@@ -75,8 +80,9 @@ def get_arguments(argv=None):
                         choices=["sampling", "argmax"])
     parser.add_argument("--dtype", default="bfloat16",
                         choices=["bfloat16", "float32"],
-                        help="compute precision of the scan engine; the "
-                             "kernel engine is bf16 by construction")
+                        help="compute precision of the scan engine "
+                             "(float32 is the parity mode); the kernel is "
+                             "bf16 by construction")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu runs the kernel's plain PyTorch twin")
     return parser.parse_args(argv)
@@ -169,6 +175,8 @@ def main(argv=None):
         logging.info("host %d/%d decodes %d utterances",
                      args.host_id, args.n_hosts, len(feat_list))
 
+    import torch
+
     from qpnet_tpu_torch.models import batch_fast_generate, params_from_numpy
     from qpnet_tpu_torch.models.generate import check_engine
     from qpnet_tpu_torch.train import load_checkpoint
@@ -183,7 +191,8 @@ def main(argv=None):
         logging.info("decoding start! (batch of %d)", len(feat_ids))
         samples_list = batch_fast_generate(
             params, cfg, x, h, n_samples, d, seed=args.seed, mode=args.mode,
-            engine=args.engine, quantize=args.quantize, device=args.device)
+            compute_dtype=getattr(torch, args.dtype), engine=args.engine,
+            quantize=args.quantize, device=args.device)
         for feat_id, samples in zip(feat_ids, samples_list):
             wav = decode_mu_law(samples, cfg.n_quantize)
             wav_filename = wav_path(feat_id)

@@ -28,7 +28,7 @@ from qpnet_tpu_torch.utils import set_loglevel
 
 _ROADMAP_DSP = ("--noise_shaping (the streaming noise-restoration filter: "
                 "dsp/emphasis.py and MLSA) is not ported yet: ROADMAP.md, "
-                "Queue 1 items 9-10")
+                "Queue 1 items 5 and 7")
 
 
 def get_arguments(argv=None):

@@ -6,8 +6,8 @@
 Under programmatic dependent launch every kernel of a step starts while the
 one before it runs and waits for it on the card, so torch.profiler's kernel
 times overlap and do not say where a step's time goes.  This builds two
-variants of csrc/gen_kernel.cu beside the shipped one (into build/kernels/;
-the port never loads them):
+variants of csrc/gen_kernel.cu beside the shipped one (into the kernels'
+build directory; the port never loads them):
   empty   the product kernels return right after their grid-dependency
           wait: the cost of the chain of 2L+4 dependent kernels per step
           with no work in them;
@@ -24,8 +24,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
-import hashlib
-import subprocess
 
 import torch
 
@@ -67,19 +65,8 @@ _AT = [
 
 
 def _variant(name: str, src: str) -> ctypes.CDLL:
-    digest = hashlib.sha256(src.encode()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"libgen_kernel_{name}-{digest}.so"
-    if not out.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu = out.with_suffix(".cu")
-        cu.write_text(src)
-        res = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
-                              str(out), str(cu)], capture_output=True,
-                             text=True)
-        if res.returncode:
-            raise RuntimeError(f"nvcc failed on the {name} variant:\n"
-                               f"{res.stderr}")
-    lib = ctypes.CDLL(str(out))
+    lib = ctypes.CDLL(str(_build.build_source(f"gen_kernel_{name}",
+                                              src.encode())))
     lib.qp_generate.argtypes = K._ARGTYPES
     lib.qp_generate.restype = ctypes.c_int
     return lib

@@ -1,15 +1,25 @@
-"""Autoregressive generation: ring priming, the kernel's input layout, the
-chunked kernel loop, the batch decode entry point and the streaming
-generator, ported from `qpnet_tpu/models/generate.py` (its kernel engine,
-bf16 and w8a8).
+"""Autoregressive generation: ring priming, the two engines, the batch decode
+entry point and the streaming generator, ported from
+`qpnet_tpu/models/generate.py`.
 
-The rings are primed by one teacher-forced f32 pass over the padded
+Both engines prime their rings by one teacher-forced pass over the padded
 history (pad value n_quantize // 2, the upsampled aux of the first frame
-replicated, dilation factors 1.0), laid out for the kernel's time origin
-t0 = 0.  Generation then runs in chunks of whole frames through
-`ops.gen_kernel.generate`, carrying ring and x state, so a chunked run is
-bit-identical to a one-shot run.  Finished utterances keep generating into
-padding; callers slice `samples[i, :n_samples[i]]`.
+replicated, dilation factors 1.0), each in its own layout:
+
+* the kernel engine (`engine="pallas"`, bf16 or w8a8) runs the sample loop
+  through `ops.gen_kernel.generate` in chunks of whole frames, carrying ring
+  and x state, so a chunked run is bit-identical to a one-shot run.  Its
+  first step is time 0 and its adaptive rings carry one slot more than
+  their deepest look-back;
+* the scan engine (`engine="xla"`, the JAX package's `lax.scan`) is plain
+  PyTorch, one step per loop iteration on the given device, in f32 (the
+  parity mode) or bf16, optionally with int8 weights (`int8_weights`).  It
+  reads d at sample rate, so it also takes dilation factors that vary
+  within frames.  Its first step is time rf, and its adaptive rings have
+  exactly `maxd * dilation` slots.
+
+Finished utterances keep generating into padding; callers slice
+`samples[i, :n_samples[i]]`.
 """
 
 from __future__ import annotations
@@ -19,11 +29,12 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from qpnet_tpu_torch.config import ModelConfig
 from qpnet_tpu_torch.models.qpnet import (
-    Params, adaptive_block, embed, fixed_block, params_to, resolve_device,
-    round_look_back,
+    Params, _gate, _matmul, adaptive_block, embed, fixed_block, params_to,
+    resolve_device, round_look_back, upsample_aux,
 )
 from qpnet_tpu_torch.ops import gen_kernel
 
@@ -33,8 +44,8 @@ MAXD_BUCKETS = (1, 2, 4, 8, 16, 32, 48, 64, 96, 128)
 # last, shorter chunk
 DECODE_CHUNK_FRAMES = 400
 
-_ROADMAP_SCAN = ("the XLA-scan engine is not ported yet: ROADMAP.md, "
-                 "Queue 1 item 4 (left out of the first slice)")
+ENGINES = ("auto", "pallas", "xla")
+QUANTIZE = ("none", "w8a8", "int8_weights")
 
 
 def bucket_maxd(maxd: float) -> int:
@@ -45,30 +56,36 @@ def bucket_maxd(maxd: float) -> int:
 
 
 def _prime_activations(params: Params, cfg: ModelConfig, x_ctx: torch.Tensor,
-                       h_up_ctx: torch.Tensor, d_ctx: torch.Tensor):
-    """Teacher-forced f32 pass over the history context; returns the layer
+                       h_up_ctx: torch.Tensor, d_ctx: torch.Tensor,
+                       dtype=torch.float32):
+    """Teacher-forced pass over the history context with products in
+    `dtype` and f32 activations (the engines' step math); returns the layer
     inputs (causal output first), each (B, Tc, R)."""
     R = cfg.n_resch
     f32 = torch.float32
     o = embed(params, x_ctx).to(f32)
     acts = [o]
     for p, dil in zip(params["fixed"], cfg.dilationsF):
-        o, _ = fixed_block(p, o, h_up_ctx, dil, R, f32, act_dtype=f32)
+        o, _ = fixed_block(p, o, h_up_ctx, dil, R, dtype, act_dtype=f32)
         acts.append(o)
     for p, dil in zip(params["adaptive"], cfg.dilationsA):
         o, _ = adaptive_block(p, o, h_up_ctx, round_look_back(d_ctx, dil), R,
-                              f32, act_dtype=f32)
+                              dtype, act_dtype=f32)
         acts.append(o)
     return acts  # len = 1 + nF + nA; acts[i] is the input of layer i
 
 
 def _prime_ring_buffers(params: Params, cfg: ModelConfig,
                         x_seed: torch.Tensor, h0_up: torch.Tensor, maxd: int,
-                        const_seed: bool = False):
-    """Per-layer rings (B, size, R) f32 laid out for the kernel, whose first
-    step is time 0: slot s of a ring of `size` holds time s - size.
-    x_seed (B, rf + 1): the padded seed history, its last sample the seed.
-    The adaptive rings carry one slot more than their deepest look-back.
+                        const_seed: bool = False, dtype=torch.float32,
+                        t0: int = 0, ring_pad: int = 1):
+    """Per-layer rings (B, size, R) f32 for an engine whose first step is
+    time `t0`: time tau sits in slot tau mod size.  The kernel counts from
+    t0 = 0 and its adaptive rings carry ring_pad = 1 slot more than their
+    deepest look-back; the scan counts from t0 = rf with ring_pad = 0.
+    Rolling for the wrong origin misplaces the history whenever
+    rf % size != 0.  x_seed (B, rf + 1): the padded seed history, its last
+    sample the seed.  dtype: the products' type of the priming pass.
 
     const_seed=True (a single-sample seed, so the whole history is
     mid-scale): with constant inputs and d = 1 the activations are
@@ -77,7 +94,7 @@ def _prime_ring_buffers(params: Params, cfg: ModelConfig,
     B = x_seed.shape[0]
     rf = cfg.receptive_field(maxd)
     sizesF = list(cfg.dilationsF)
-    sizesA = [maxd * dil + 1 for dil in cfg.dilationsA]
+    sizesA = [maxd * dil + ring_pad for dil in cfg.dilationsA]
     dev = h0_up.device
     if const_seed:
         W = (cfg.receptive_causal + cfg.receptiveF
@@ -85,19 +102,25 @@ def _prime_ring_buffers(params: Params, cfg: ModelConfig,
         x_ctx = x_seed[:, :1].expand(B, W)
         h_up_ctx = h0_up[:, None, :].expand(B, W, h0_up.shape[-1])
         d_ctx = torch.ones((B, W), dtype=torch.float32, device=dev)
-        acts = _prime_activations(params, cfg, x_ctx, h_up_ctx, d_ctx)
+        acts = _prime_activations(params, cfg, x_ctx, h_up_ctx, d_ctx, dtype)
         return ([acts[i][:, -1:].expand(B, s, -1) for i, s in enumerate(sizesF)],
                 [acts[len(sizesF) + i][:, -1:].expand(B, s, -1)
                  for i, s in enumerate(sizesA)])
     h_up_ctx = h0_up[:, None, :].expand(B, rf, h0_up.shape[-1])
     d_ctx = torch.ones((B, rf), dtype=torch.float32, device=dev)
-    acts = _prime_activations(params, cfg, x_seed[:, :-1], h_up_ctx, d_ctx)
-    # the tail act[:, rf-size:rf] holds times -size..-1, already in slot
-    # order (time tau sits in slot tau mod size)
-    return ([acts[i][:, rf - s: rf] for i, s in enumerate(sizesF)],
-            [acts[len(sizesF) + i][:, rf - s: rf]
+    acts = _prime_activations(params, cfg, x_seed[:, :-1], h_up_ctx, d_ctx,
+                              dtype)
+    # the tail act[:, rf-size:rf] holds times t0-size..t0-1; time tau goes
+    # to slot tau mod size = (j + t0) mod size for tail index j
+    return ([torch.roll(acts[i][:, rf - s: rf], t0 % s, 1)
+             for i, s in enumerate(sizesF)],
+            [torch.roll(acts[len(sizesF) + i][:, rf - s: rf], t0 % s, 1)
              for i, s in enumerate(sizesA)])
 
+
+# ---------------------------------------------------------------------------
+# the kernel engine
+# ---------------------------------------------------------------------------
 
 def _kernel_state(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
                   h0: torch.Tensor, maxd: int, const_seed: bool):
@@ -217,52 +240,274 @@ def _seed_and_d(cfg: ModelConfig, x: np.ndarray, d: np.ndarray,
     return maxd, np.asarray(x_seed, np.int32), d_gen
 
 
+# ---------------------------------------------------------------------------
+# the scan engine
+# ---------------------------------------------------------------------------
+
+def _quantize_int8(w: torch.Tensor):
+    """Per-output-column symmetric int8 weight quantization: (q int8, s f32
+    (1, N)) with w ~ q * s."""
+    s = torch.amax(torch.abs(w), dim=0, keepdim=True) / 127.0
+    s = torch.clamp(s, min=1e-12)
+    q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+    return q, s.to(torch.float32)
+
+
+def _fused_weights(params: Params, dtype, quantize: str = "none"):
+    """Per-layer weights for the two-product step: W_in = [W_cur; W_prev]
+    and W_out = [W_skip | W_res] in `dtype`, or with
+    quantize="int8_weights" as int8 with per-column scales (weight-only
+    quantization)."""
+    def fuse(p):
+        W_in = torch.cat([p["W_cur"], p["W_prev"]], 0)
+        W_out = torch.cat([p["W_skip"], p["W_res"]], 1)
+        d = {"W_aux": p["W_aux"].to(dtype),
+             "b_gate": p["b_gate"].float(),
+             "b_skip": p["b_skip"].float(),
+             "b_res": p["b_res"].float()}
+        if quantize == "int8_weights":
+            d["W_in_q"], d["s_in"] = _quantize_int8(W_in)
+            d["W_out_q"], d["s_out"] = _quantize_int8(W_out)
+        else:
+            d["W_in"] = W_in.to(dtype)
+            d["W_out"] = W_out.to(dtype)
+        return d
+
+    return ([fuse(p) for p in params["fixed"]],
+            [fuse(p) for p in params["adaptive"]])
+
+
+def _wmatmul(x: torch.Tensor, p: dict, key: str, dtype) -> torch.Tensor:
+    """x @ W for a fused weight entry: an int8 weight is cast to `dtype`
+    (exact), multiplied, then scaled per column."""
+    if key + "_q" in p:
+        y = _matmul(x, p[key + "_q"].to(dtype), dtype)
+        return y * p["s_" + key.split("_")[1]]
+    return _matmul(x, p[key], dtype)
+
+
+def _sample(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from softmax(logits), by the Gumbel-max trick on
+    uniforms from `generator` (on the logits' device)."""
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+                   device=logits.device)
+    g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits + g, dim=-1)
+
+
+def _scan_layer(p: dict, o: torch.Tensor, past: torch.Tensor,
+                h_t: torch.Tensor, R: int, dtype) -> torch.Tensor:
+    """One residual block at one step: [skip | res] (B, S + R) f32."""
+    z = (_wmatmul(torch.cat([o, past], -1), p, "W_in", dtype)
+         + _matmul(h_t, p["W_aux"], dtype) + p["b_gate"])
+    return _wmatmul(_gate(z, R), p, "W_out", dtype)
+
+
+def _generate_scan(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
+                   h: torch.Tensor, d: torch.Tensor, n_steps: int, maxd: int,
+                   mode: str = "sampling", compute_dtype=torch.bfloat16,
+                   quantize: str = "none", const_seed: bool = False,
+                   forced_x: torch.Tensor = None,
+                   generator: torch.Generator = None) -> torch.Tensor:
+    """The scan engine, one step per iteration, on the tensors' device.
+
+    x_seed: (B, rf + 1) int mid-scale-padded seed history, its last element
+    the seed (timeline position rf); h: (B, F, A) f32 frame-rate aux,
+    upsampled here, sample position rf + i reading h_up[:, i]; d: (B,
+    >= n_steps) f32 sample-rate dilation factors (position rf + i uses
+    d[:, i]); forced_x: (B, n_steps) int, required iff mode="forced", the
+    sample each step feeds back.  Sampling draws from `generator`.
+    Returns (B, n_steps) int32 samples, or in forced mode (B, n_steps,
+    n_quantize) f32 logits.
+    """
+    if mode not in ("sampling", "argmax", "forced"):
+        raise ValueError("mode should be sampling, argmax or forced")
+    R, S = cfg.n_resch, cfg.n_skipch
+    f32 = torch.float32
+    dev = x_seed.device
+    rf = cfg.receptive_field(maxd)
+    B = x_seed.shape[0]
+    if x_seed.shape[1] != rf + 1:
+        raise ValueError(f"x_seed must hold rf + 1 = {rf + 1} samples")
+    h_up = upsample_aux(params, h, cfg.upsampling_factor)    # (B, F*up, A)
+    if h_up.shape[1] < n_steps:
+        raise ValueError(f"h covers {h_up.shape[1]} samples, fewer than "
+                         f"n_steps={n_steps}")
+    fixedW, adaptW = _fused_weights(params, compute_dtype, quantize)
+    embed_cur = params["embed_cur"].to(f32)
+    embed_prev = params["embed_prev"].to(f32)
+    b_causal = params["b_causal"].to(f32)
+    W_post1 = params["W_post1"].to(compute_dtype)
+    W_post2 = params["W_post2"].to(compute_dtype)
+    b_post1, b_post2 = params["b_post1"], params["b_post2"]
+
+    # rings over positions [0, rf-1] (the seed excluded), for a first step
+    # at time rf; cloned so the steps can write them in place
+    bufsF, bufsA = _prime_ring_buffers(
+        params, cfg, x_seed, h_up[:, 0], maxd, const_seed, compute_dtype,
+        t0=rf, ring_pad=0)
+    bufsF = [b.contiguous().clone() for b in bufsF]
+    bufsA = [b.contiguous().clone() for b in bufsA]
+    sizesF = list(cfg.dilationsF)
+    sizesA = [maxd * dil for dil in cfg.dilationsA]
+
+    # per-step inputs: aux, and each adaptive layer's read slot with its
+    # look-back clipped to [0, size]; r == 0 reads the current o, which the
+    # ring (past values only) does not hold
+    h_steps = h_up[:, :n_steps].transpose(0, 1).contiguous()   # (T, B, A)
+    t = rf + torch.arange(n_steps, device=dev)
+    rows = torch.arange(B, device=dev)
+    reads, current = [], []
+    for dil, size in zip(cfg.dilationsA, sizesA):
+        r = torch.clamp(round_look_back(d[:, :n_steps], dil), 0, size).T
+        reads.append(((t[:, None] - r + size) % size).long())   # (T, B)
+        current.append((r == 0)[..., None])                      # (T, B, 1)
+    if mode == "forced":
+        fx = forced_x.to(device=dev, dtype=torch.long).T.contiguous()
+        out = torch.empty((n_steps, B, cfg.n_quantize), dtype=f32, device=dev)
+    else:
+        out = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
+
+    x_prev, x_cur = x_seed[:, -2].long(), x_seed[:, -1].long()
+    for i in range(n_steps):
+        ti = rf + i
+        h_t = h_steps[i]
+        o = embed_cur[x_cur] + embed_prev[x_prev] + b_causal
+        skip_sum = torch.zeros((B, S), dtype=f32, device=dev)
+        for p, buf, size in zip(fixedW, bufsF, sizesF):
+            y = _scan_layer(p, o, buf[:, ti % size], h_t, R, compute_dtype)
+            skip_sum = skip_sum + y[:, :S] + p["b_skip"]
+            buf[:, ti % size] = o
+            o = o + y[:, S:] + p["b_res"]
+        for li, (p, buf, size) in enumerate(zip(adaptW, bufsA, sizesA)):
+            past = torch.where(current[li][i], o, buf[rows, reads[li][i]])
+            y = _scan_layer(p, o, past, h_t, R, compute_dtype)
+            skip_sum = skip_sum + y[:, :S] + p["b_skip"]
+            buf[:, ti % size] = o
+            o = o + y[:, S:] + p["b_res"]
+        u = F.relu(skip_sum)
+        u = F.relu(_matmul(u, W_post1, compute_dtype) + b_post1)
+        logits = _matmul(u, W_post2, compute_dtype) + b_post2
+        if mode == "forced":
+            out[i] = logits
+            x_next = fx[i]
+        else:
+            x_next = (_sample(logits, generator) if mode == "sampling"
+                      else torch.argmax(logits, dim=-1))
+            out[i] = x_next
+        x_prev, x_cur = x_cur, x_next
+    return out.transpose(0, 1)
+
+
+def _scan_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
+               h: np.ndarray, d: np.ndarray, n_steps: int, maxd: int,
+               seed: int, mode: str, compute_dtype, quantize: str,
+               const_seed: bool, device, x_forced=None) -> np.ndarray:
+    """The scan engine on `device`: (B, n_steps) int32 samples, or in
+    forced mode (B, n_steps, Q) f32 logits.  Sampling seeds a
+    torch.Generator on the device with `seed`: deterministic given the
+    seed, and equal to the JAX scan's `jax.random.categorical` draws only
+    in distribution."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    with torch.no_grad():
+        out = _generate_scan(
+            params_to(params, device), cfg,
+            torch.as_tensor(np.asarray(x_seed), dtype=torch.long,
+                            device=device),
+            torch.as_tensor(np.asarray(h, np.float32), device=device),
+            torch.as_tensor(np.asarray(d, np.float32), device=device),
+            n_steps, maxd, mode, compute_dtype, quantize, const_seed,
+            forced_x=(None if x_forced is None
+                      else torch.as_tensor(np.asarray(x_forced),
+                                           device=device)),
+            generator=gen)
+    return out.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# engine routing and the entry points
+# ---------------------------------------------------------------------------
+
 def check_engine(engine: str, quantize: str) -> None:
-    """Raise for an engine or quantization scheme the port does not run."""
-    if engine == "xla":
-        raise NotImplementedError(_ROADMAP_SCAN)
-    if engine not in ("auto", "pallas"):
+    """Raise ValueError for an unknown engine or scheme, or a pair that does
+    not go together: w8a8 is the kernel's scheme, int8_weights the scan's."""
+    if quantize == "int8":
+        raise ValueError(
+            "quantize='int8' is ambiguous: use 'w8a8' (kernel engine: "
+            "dynamic activation + weight int8) or 'int8_weights' (scan "
+            "engine: weight-only dequantized products)")
+    if engine not in ENGINES:
         raise ValueError("engine should be 'auto', 'pallas' or 'xla'")
-    if quantize == "int8_weights":
-        raise NotImplementedError(
-            "quantize='int8_weights' is the scan engine's scheme, not ported "
-            "yet: ROADMAP.md, Queue 1 item 4")
-    if quantize not in gen_kernel.QUANTIZE:
+    if quantize not in QUANTIZE:
         raise ValueError(f"unknown quantize {quantize!r}")
+    if quantize == "w8a8" and engine == "xla":
+        raise ValueError("quantize='w8a8' is a kernel-engine (pallas) scheme")
+    if quantize == "int8_weights" and engine == "pallas":
+        raise ValueError("quantize='int8_weights' is a scan-engine (xla) "
+                         "scheme")
+
+
+def _use_scan(engine: str, quantize: str, d_gen: np.ndarray,
+              up: int) -> bool:
+    """The JAX package's routing: "xla" runs the scan, "pallas" the kernel
+    (CUDA on the card, its twin on a CPU device), and "auto" the kernel
+    unless d varies within frames or quantize="int8_weights", which only
+    the scan takes."""
+    check_engine(engine, quantize)
+    frame_const = _frame_constant(d_gen, up)
+    if engine == "pallas" and not frame_const:
+        raise ValueError(
+            "engine='pallas' streams dilation factors at frame rate; this "
+            "input varies d within frames, which would silently change the "
+            "adaptive look-backs: use engine='auto' or 'xla'")
+    if engine != "auto":
+        return engine == "xla"
+    reasons = []
+    if not frame_const:
+        reasons.append("dilation factors vary within frames")
+    if quantize == "int8_weights":
+        reasons.append("quantize='int8_weights' is the scan's scheme")
+    if not reasons:
+        return False
+    if quantize == "w8a8":
+        raise ValueError(
+            "quantize='w8a8' requires the kernel engine, which reads d at "
+            "frame rate, and this input varies d within frames")
+    logging.info("batch_fast_generate: using the scan engine because %s",
+                 "; ".join(reasons))
+    return True
 
 
 def batch_fast_generate(params: Params, cfg: ModelConfig,
                         x: np.ndarray, h: np.ndarray,
                         n_samples_list: Sequence[int], d: np.ndarray,
                         seed: int = 100, mode: str = "sampling",
+                        compute_dtype=torch.bfloat16,
                         quantize: str = "none", engine: str = "auto",
                         device="cuda") -> List[np.ndarray]:
-    """Batch AR synthesis through the generation kernel.
+    """Batch AR synthesis.
 
     x: (B, T_seed) int seed samples (typically one mu-law zero);
     h: (B, F, A) standardized frame-rate aux, zero-padded to the longest
     utterance; n_samples_list: samples per utterance (F_i * up - 1);
-    d: (B, F * up) f32 sample-rate dilation factors, constant within frames.
+    d: (B, F * up) f32 sample-rate dilation factors.
     Returns a list of (n_samples_i,) int32 mu-law sample arrays.
 
-    engine "auto" and "pallas" both run the CUDA kernel (on a CPU device,
-    its plain twin), in bf16 or, with quantize="w8a8", int8 weights and
-    activations; "xla" and "int8_weights" are not ported yet.  The batch
-    runs as one kernel call per chunk, whatever its size.
+    engine "pallas" runs the generation kernel (on a CPU device, its plain
+    twin) in bf16 or, with quantize="w8a8", int8 weights and activations;
+    it needs d constant within frames.  "xla" runs the scan engine in
+    `compute_dtype` (float32 is the parity mode), optionally with
+    quantize="int8_weights".  "auto" runs the kernel, and the scan only
+    where d varies within frames or quantize="int8_weights".  The kernel
+    is bf16 by construction and ignores `compute_dtype`.  The scan samples
+    from a torch.Generator seeded with `seed`, and the kernel from its
+    counter hash: each is deterministic given the seed.
     """
     device = resolve_device(device)
-    check_engine(engine, quantize)
     n_steps = int(max(n_samples_list))
     maxd, x_seed, d_gen = _seed_and_d(cfg, x, d, n_steps)
-    if not _frame_constant(d_gen, cfg.upsampling_factor):
-        if engine == "pallas":
-            raise ValueError(
-                "engine='pallas' streams dilation factors at frame rate; "
-                "this input varies d within frames, which would silently "
-                "change the adaptive look-backs")
-        raise NotImplementedError(
-            "dilation factors that vary within frames need the scan "
-            "engine; " + _ROADMAP_SCAN)
+    scan = _use_scan(engine, quantize, d_gen, cfg.upsampling_factor)
     const_seed = x.shape[1] <= 1
     if not const_seed:
         logging.warning(
@@ -270,32 +515,58 @@ def batch_fast_generate(params: Params, cfg: ModelConfig,
             "replicated first-frame aux and d=1 (not the true history "
             "track); outputs near the seed boundary deviate from the "
             "reference's continuation semantics", x.shape[1])
-    samples = _pallas_path(params, cfg, x_seed, np.asarray(h, np.float32),
-                           d_gen, n_steps, maxd, seed, mode,
-                           const_seed=const_seed, device=device,
-                           quantize=quantize)
+    if scan:
+        samples = _scan_path(params, cfg, x_seed, h, d_gen, n_steps, maxd,
+                             seed, mode, compute_dtype, quantize, const_seed,
+                             device)
+    else:
+        samples = _pallas_path(params, cfg, x_seed,
+                               np.asarray(h, np.float32), d_gen, n_steps,
+                               maxd, seed, mode, const_seed=const_seed,
+                               device=device, quantize=quantize)
     return [samples[i, :n] for i, n in enumerate(n_samples_list)]
 
 
 def teacher_forced_logits(params: Params, cfg: ModelConfig,
                           x: np.ndarray, h: np.ndarray,
                           forced: np.ndarray, d: np.ndarray,
-                          engine: str = "pallas", quantize: str = "none",
+                          engine: str = "xla", compute_dtype=torch.bfloat16,
+                          quantize: str = "none",
                           device="cuda") -> np.ndarray:
-    """Per-step logits of the generation kernel under teacher forcing: the
-    same machinery as `batch_fast_generate`, fed the given `forced`
-    (B, n_steps) stream instead of its own samples.  Returns
-    (B, n_steps, n_quantize) f32; logits[:, i] is the distribution step i
-    would have sampled forced[:, i] from."""
+    """Per-step logits of a generation engine under teacher forcing: the
+    same machinery as `batch_fast_generate` (priming, rings, the scan or
+    the kernel), fed the given `forced` (B, n_steps) stream instead of its
+    own samples.  engine: "xla" (the scan, in `compute_dtype`) or "pallas"
+    (the kernel, bf16).  Returns (B, n_steps, n_quantize) f32;
+    logits[:, i] is the distribution step i would have sampled
+    forced[:, i] from."""
     device = resolve_device(device)
-    check_engine(engine, quantize)
+    if engine not in ("xla", "pallas"):
+        raise ValueError("engine should be 'xla' or 'pallas'")
     n_steps = int(forced.shape[1])
     maxd, x_seed, d_gen = _seed_and_d(cfg, x, d, n_steps)
+    const_seed = x.shape[1] <= 1
+    if _use_scan(engine, quantize, d_gen, cfg.upsampling_factor):
+        return _scan_path(params, cfg, x_seed, h, d_gen, n_steps, maxd, 0,
+                          "forced", compute_dtype, quantize, const_seed,
+                          device, x_forced=forced)
     out = _pallas_path(params, cfg, x_seed, np.asarray(h, np.float32), d_gen,
                        n_steps, maxd, seed=0, mode="forced",
-                       const_seed=x.shape[1] <= 1, device=device,
+                       const_seed=const_seed, device=device,
                        x_forced=forced, quantize=quantize)
     return np.moveaxis(out, 0, 1)
+
+
+def check_streaming_quantize(quantize: str) -> None:
+    """Streaming runs the generation kernel, which has no weight-only
+    scheme: refuse int8_weights (and anything the kernel does not take)."""
+    if quantize == "int8_weights":
+        raise ValueError(
+            "quantize='int8_weights' cannot stream: streaming runs the "
+            "generation kernel, which has no weight-only int8 scheme (it "
+            "is the scan engine's, batch_fast_generate(engine='xla'))")
+    if quantize not in gen_kernel.QUANTIZE:
+        raise ValueError(f"unknown quantize {quantize!r}")
 
 
 class StreamingGenerator:
@@ -317,7 +588,7 @@ class StreamingGenerator:
                  maxd: int = 32, seed: int = 100, mode: str = "sampling",
                  min_chunk_samples: int = 5500, quantize: str = "none",
                  device="cuda"):
-        check_engine("pallas", quantize)
+        check_streaming_quantize(quantize)
         if mode not in ("sampling", "argmax"):
             raise ValueError("mode should be sampling or argmax")
         self.device = resolve_device(device)

@@ -36,7 +36,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 
 from qpnet_tpu_torch.config import ModelConfig
-from qpnet_tpu_torch.models.generate import StreamingGenerator
+from qpnet_tpu_torch.models.generate import (StreamingGenerator,
+                                             check_streaming_quantize)
 from qpnet_tpu_torch.models.qpnet import resolve_device
 from qpnet_tpu_torch.ops.mulaw import decode_mu_law
 
@@ -111,6 +112,7 @@ class StreamingService:
                      [np.ndarray], Tuple[np.ndarray, np.ndarray]]] = None,
                  devices: Optional[List] = None,
                  max_pending: Optional[int] = None):
+        check_streaming_quantize(quantize)
         self.params, self.cfg = params, cfg
         self.frontend = frontend
         self.quantize = quantize

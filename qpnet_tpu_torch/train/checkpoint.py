@@ -53,8 +53,8 @@ def load_checkpoint(path: str) -> dict:
         return _PortUnpickler(f).load()
 
 
-ORBAX = ("orbax checkpoints are read and written by the JAX package only "
-         "(ROADMAP.md, Queue 1 item 3)")
+ORBAX = ("orbax checkpoints are read and written by the JAX package only; "
+         "the port reads and writes the pickle format")
 
 
 def checkpoint_backend(backend: str = None) -> str:

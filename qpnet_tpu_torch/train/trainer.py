@@ -20,7 +20,7 @@ import os
 import re
 import signal
 import time
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,6 +97,12 @@ def _yaml_float(v: float) -> str:
     return text
 
 
+def _parse_yaml_float(text: str) -> float:
+    special = {".nan": math.nan, ".inf": math.inf, "-.inf": -math.inf}
+    text = text.strip().lower()
+    return special[text] if text in special else float(text)
+
+
 def write_loss_record(path: str, losses: Sequence[float]) -> None:
     text = "".join(f"- {_yaml_float(v)}\n" for v in losses) or "[]\n"
     with open(path, "w", encoding="utf-8") as f:
@@ -104,13 +110,53 @@ def write_loss_record(path: str, losses: Sequence[float]) -> None:
 
 
 def read_loss_record(path: str) -> List[float]:
-    special = {".nan": math.nan, ".inf": math.inf, "-.inf": -math.inf}
     with open(path, encoding="utf-8") as f:
         lines = [ln.strip() for ln in f if ln.strip()]
     if lines in ([], ["[]"]):
         return []
-    values = [ln[1:].strip().lower() for ln in lines]   # "- <float>"
-    return [special[v] if v in special else float(v) for v in values]
+    return [_parse_yaml_float(ln[1:]) for ln in lines]   # "- <float>"
+
+
+# --- validation_result.yml: a YAML mapping {checkpoint name: mean loss},
+# keys sorted as PyYAML's safe_dump sorts them; the port quotes its keys,
+# and reads the plain, single- and double-quoted keys that both CLIs write
+
+def write_validation_record(path: str, results: Mapping[str, float]) -> None:
+    text = "".join("'%s': %s\n" % (k.replace("'", "''"), _yaml_float(v))
+                   for k, v in sorted(results.items())) or "{}\n"
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text)
+
+
+def _mapping_entry(line: str):
+    """(key, value text) of one `key: value` line of a YAML mapping."""
+    if line[0] == "'":
+        j = 1
+        while True:
+            j = line.index("'", j)
+            if line[j + 1:j + 2] != "'":
+                return line[1:j].replace("''", "'"), line[j + 2:]
+            j += 2
+    if line[0] == '"':
+        j = 1
+        while True:
+            j = line.index('"', j)
+            if line[j - 1] != "\\":
+                return (line[1:j].encode("ascii", "backslashreplace")
+                        .decode("unicode_escape"), line[j + 2:])
+            j += 1
+    key, value = line.rsplit(": ", 1)
+    return key, value
+
+
+def read_validation_record(path: str) -> Dict[str, float]:
+    out = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            if line.strip() and line.strip() != "{}":
+                key, value = _mapping_entry(line.rstrip("\n"))
+                out[key] = _parse_yaml_float(value)
+    return out
 
 
 def _newest_checkpoint(expdir: str) -> Optional[str]:

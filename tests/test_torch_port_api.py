@@ -178,17 +178,36 @@ def test_feats_shape_validated(expdir):
 
 
 def test_what_is_not_ported_raises(expdir):
-    tmp, _, _, _ = expdir
+    """analyze and vocode wait for the host DSP; the scan engine's
+    combinations load and synthesize what batch_fast_generate gives, while
+    int8_weights cannot stream (the kernel has no weight-only scheme)."""
+    from qpnet_tpu_torch.models import batch_fast_generate
+    from qpnet_tpu_torch.ops import encode_mu_law
+
+    tmp, cfg, _, feats = expdir
+    x0 = np.full((1, 1), int(encode_mu_law(np.zeros(1), cfg.n_quantize)[0]),
+                 np.int32)
     voc = load(tmp)
     tone = np.sin(np.arange(2000) / 10.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         voc.analyze(tone)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         voc.vocode(tone, f0_factor=1.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load(tmp, engine="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load(tmp, quantize="int8_weights")
+    for kw in ({"engine": "xla"}, {"quantize": "int8_weights"}):
+        v = load(tmp, mode="argmax", **kw)
+        h, d = v.conditioning(feats)
+        want = batch_fast_generate(
+            v.params, cfg, x0, h[None],
+            [len(h) * cfg.upsampling_factor - 1],
+            np.repeat(d, cfg.upsampling_factor)[None], seed=v.seed,
+            mode="argmax", engine="xla", quantize=v.quantize, device="cpu")
+        np.testing.assert_array_equal(
+            v.synthesize(feats),
+            np.asarray(decode_mu_law(want[0], cfg.n_quantize), np.float32))
+    with pytest.raises(ValueError, match="int8_weights"):
+        next(load(tmp, quantize="int8_weights").stream(feats))
+    with pytest.raises(ValueError, match="w8a8"):
+        load(tmp, engine="xla", quantize="w8a8")
 
 
 def test_defaults_to_cuda(expdir):

@@ -123,13 +123,73 @@ def test_cli_host_striding_with_f0_factor(expdir, tmp_path):
         np.testing.assert_array_equal(a[fid], b[fid])
 
 
+def _library_wavs(e, args_list, **kw):
+    """{feat_id: int16 wav} of batch_fast_generate on the CLI's batches."""
+    args = qpnet_decode.get_arguments(args_list)
+    run_cfg = RunConfig.load(e["config"])
+    params = params_from_numpy(load_checkpoint(e["final"])["model"], "cpu")
+    out = {}
+    for fids, x, h, n_samples, d in qpnet_decode.decode_batches(
+            e["feats"], run_cfg, args, load_scaler(e["stats"])):
+        rows = batch_fast_generate(params, run_cfg.model, x, h, n_samples, d,
+                                   seed=100, device="cpu", **kw)
+        for fid, s in zip(fids, rows):
+            out[fid] = np.clip(decode_mu_law(s, 256) * 32768, -32768,
+                               32767).astype(np.int16)
+    return out
+
+
 @pytest.mark.parametrize("extra", [("--engine", "xla"),
                                    ("--engine", "xla", "--quantize", "w8a8"),
                                    ("--quantize", "int8_weights"),
                                    ("--n_devices", "2")])
 def test_cli_rejects_what_is_not_ported(expdir, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qpnet_decode.main(argv(expdir, str(tmp_path / "o"), *extra))
+    """Multi-device decode is not ported and w8a8 is no scheme of the scan
+    engine; --engine xla and --quantize int8_weights decode through the
+    scan engine, as batch_fast_generate does on the CLI's batches."""
+    out = str(tmp_path / "o" / "feat_id.wav")
+    if "--n_devices" in extra:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            qpnet_decode.main(argv(expdir, out, *extra))
+        return
+    if "w8a8" in extra:
+        with pytest.raises(ValueError, match="w8a8"):
+            qpnet_decode.main(argv(expdir, out, *extra))
+        return
+    a = argv(expdir, out, *extra, "--batch_size", "0")
+    qpnet_decode.main(a)
+    wavs = read_wavs(out, expdir["feats"])
+    want = _library_wavs(expdir, a, engine="xla",
+                         quantize="int8_weights" if "int8_weights" in extra
+                         else "none")
+    assert sorted(wavs) == sorted(want)
+    for fid in wavs:
+        np.testing.assert_array_equal(wavs[fid], want[fid])
+
+
+def test_cli_f32_scan_matches_library_and_jax_cli(expdir, tmp_path):
+    """--engine xla --dtype float32 --mode argmax: the parity mode writes
+    what batch_fast_generate(engine="xla", compute_dtype=torch.float32)
+    gives, and what the JAX CLI writes with the same argv."""
+    from qpnet_tpu.bin import qpnet_decode as jax_decode
+
+    flags = ("--engine", "xla", "--dtype", "float32", "--mode", "argmax",
+             "--batch_size", "2")
+    out = str(tmp_path / "port" / "feat_id.wav")
+    a = argv(expdir, out, *flags)
+    qpnet_decode.main(a)
+    wavs = read_wavs(out, expdir["feats"])
+    want = _library_wavs(expdir, a, mode="argmax", engine="xla",
+                         compute_dtype=torch.float32)
+    jout = str(tmp_path / "jax" / "feat_id.wav")
+    ja = argv(expdir, jout)
+    jax_decode.main(ja[:ja.index("--device")] + list(flags))
+    jwavs = read_wavs(jout, expdir["feats"])
+    assert len(wavs) == 3
+    for fid in wavs:
+        np.testing.assert_array_equal(wavs[fid], want[fid])
+        np.testing.assert_array_equal(wavs[fid], jwavs[fid])
+        assert wavs[fid].max() > wavs[fid].min()
 
 
 def test_cli_decodes_w8a8_through_the_library(expdir, tmp_path):

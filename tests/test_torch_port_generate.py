@@ -115,7 +115,8 @@ def test_forced_logits_match_jax_kernel_every_step(seed, kw):
     x0, h, forced, d, n = make_case(cfg, B=2, F=F, seed=seed, **kw)
     ref = JG.teacher_forced_logits(pj, cfg_j, x0, h, forced, d,
                                    engine="pallas", interpret=True)
-    got = TG.teacher_forced_logits(pt, cfg, x0, h, forced, d, device="cpu")
+    got = TG.teacher_forced_logits(pt, cfg, x0, h, forced, d,
+                                   engine="pallas", device="cpu")
     assert got.shape == ref.shape == (2, n, cfg.n_quantize)
     np.testing.assert_allclose(got, ref, atol=FORCED_ATOL)
 
@@ -135,7 +136,8 @@ def test_forced_logits_match_teacher_forced_forward():
     d_full = np.concatenate([np.ones((B, rf), np.float32), d], axis=1)
     ref = TQ.forward(pt, cfg, torch.from_numpy(x_full), None,
                      torch.from_numpy(d_full), h_up=h_up_full)[:, rf:rf + n]
-    got = TG.teacher_forced_logits(pt, cfg, x0, h, forced, d, device="cpu")
+    got = TG.teacher_forced_logits(pt, cfg, x0, h, forced, d,
+                                   engine="pallas", device="cpu")
     np.testing.assert_allclose(got, ref.numpy(), atol=0.03)
 
 
@@ -260,12 +262,16 @@ def test_decode_defaults_to_cuda_and_rejects_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TG.batch_fast_generate(pt, cfg, x0, h, [n], d)
-    for kw, err in (({"engine": "xla"}, NotImplementedError),
-                    ({"engine": "xla", "quantize": "w8a8"},
-                     NotImplementedError),
-                    ({"quantize": "int8_weights"}, NotImplementedError),
+    for kw, err in (({"engine": "xla"}, None),
+                    ({"engine": "xla", "quantize": "w8a8"}, ValueError),
+                    ({"quantize": "int8_weights"}, None),
                     ({"quantize": "int4"}, ValueError),
                     ({"engine": "scan"}, ValueError)):
+        if err is None:     # the scan engine
+            out = TG.batch_fast_generate(pt, cfg, x0, h, [n], d,
+                                         device="cpu", **kw)
+            assert out[0].shape == (n,) and out[0].dtype == np.int32
+            continue
         with pytest.raises(err):
             TG.batch_fast_generate(pt, cfg, x0, h, [n], d, device="cpu",
                                    **kw)
@@ -274,8 +280,11 @@ def test_decode_defaults_to_cuda_and_rejects_what_is_not_ported():
     with pytest.raises(ValueError, match="frame"):
         TG.batch_fast_generate(pt, cfg, x0, h, [n], d_var, engine="pallas",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TG.batch_fast_generate(pt, cfg, x0, h, [n], d_var, device="cpu")
+    out = TG.batch_fast_generate(pt, cfg, x0, h, [n], d_var, mode="argmax",
+                                 device="cpu")
+    want = TG.batch_fast_generate(pt, cfg, x0, h, [n], d_var, mode="argmax",
+                                  engine="xla", device="cpu")
+    np.testing.assert_array_equal(out[0], want[0])
     cfg_, maxd, n, h_, d_, (packed, bF, bA, x0_), _ = _port_chunk_case()
     with pytest.raises(ValueError, match="whole frames"):
         TK.generate(packed, cfg_, bF, bA, x0_, h_, d_, 0, B=3, maxd=maxd,

@@ -136,7 +136,7 @@ def test_feed_validation(model):
         sess.feed(np.zeros((2, 3, cfg.n_aux)), np.ones((2, 4)))
     with pytest.raises(ValueError, match="maxd"):
         sess.feed(np.zeros((2, 3, cfg.n_aux)), np.full((2, 3), 9.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no weight-only"):
         session(cfg, pt, 1, quantize="int8_weights")
 
 

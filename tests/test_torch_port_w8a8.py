@@ -165,9 +165,10 @@ def test_w8a8_logits_close_to_bf16():
     bf16 forced logits on the same stream."""
     _, pt, _, cfg = carried(TINY, 0)
     x0, h, forced, d, _ = make_case(cfg, 2, 10, 0)
-    ref = TG.teacher_forced_logits(pt, cfg, x0, h, forced, d, device="cpu")
+    ref = TG.teacher_forced_logits(pt, cfg, x0, h, forced, d,
+                                   engine="pallas", device="cpu")
     q = TG.teacher_forced_logits(pt, cfg, x0, h, forced, d, quantize="w8a8",
-                                 device="cpu")
+                                 engine="pallas", device="cpu")
     assert q.shape == ref.shape
     rmse = float(np.sqrt(np.mean((q - ref) ** 2)))
     rel = rmse / (float(np.sqrt(np.mean(ref ** 2))) + 1e-12)
