@@ -77,8 +77,30 @@ Phases, each reported on its own line; any failure exits non-zero:
      for 2 frames through K1 (launched, outputs finite);
  14. `tools/serve_soak.run_soak` on the default network, bf16, 8 streams,
      one minute of 1.0 s utterances: ok, completions, K1 launched; its
-     summary JSON, prewarmed group sizes and chunk latencies.
-Each main path (phases 4, 7, 10, 12-14) also prints its peak device memory.
+     summary JSON, prewarmed group sizes and chunk latencies;
+ 15. WORLD analysis on the card (plain PyTorch, no kernel of its own) at
+     the port's AcousticConfig (22,050 Hz, fftl 1024, mcep 34, alpha
+     0.455, 5 ms, harvest 40-400 Hz) on synthetic voiced 3 s and 10 s
+     utterances: `WorldAnalyzer.extract_all` queued without a sync
+     (`torch.cuda.set_sync_debug_mode("error")`), its F0 held to the host
+     analysis with the JAX package's gates (voicing agreement > 0.85, both
+     voiced > 0.4, median |dF0| < 1 Hz, > 0.9 within 10 Hz); the device
+     spectral stages fed the host F0 against the host's (CheapTrick median
+     < 0.01 dB, mean < 0.05 dB; mcep c0 mean < 0.1, mean < 0.05; codeap
+     median < 0.01 dB and under 1% of its values beyond 0.1 dB); fused
+     equal to staged (F0 bit for bit, mcep within 1e-5, codeap and npow
+     1e-4); the max gates (D4C < 0.05 dB, codeap < 0.1 dB) on the JAX
+     package's own gate inputs (`dsp/world/gates.py`); ms per second of
+     audio (device: median, lowest and highest of 5 passes after a
+     warm-up, each split by stage from its own CUDA events; host once),
+     CUDA kernels per utterance, idle share, peak memory; then K1 held
+     against its twins in forced mode at the shape `vocode` gives it (B=1,
+     the utterance's maxd bucket, 4 frames around its largest d), and
+     `Vocoder(device="cuda").vocode` of the 3 s utterance as int16 PCM on
+     the default net (random weights, a scaler from its own features):
+     F*up - 1 finite, non-silent samples, K1 launched; its wall time beside
+     `analyze` of the same PCM timed alone.
+Each main path (phases 4, 7, 10, 12-15) also prints its peak device memory.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
@@ -261,6 +283,7 @@ def main() -> int:
         "decode": kernels[0]["launches"],
         "converted_decode": tools_smoke(ModelConfig(), dev, card),
         "soak": soak_smoke(dev, card)}
+    kernels[0]["launches_by_path"]["vocode"] = analysis_smoke(dev, card)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -1269,6 +1292,291 @@ def soak_smoke(dev, card):
     check(out["ok"] and out["completions"] > 0, f"soak: {out}")
     check(launches > 0, "the soak must launch K1")
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: WORLD analysis on the card, and vocode ending in K1
+# ---------------------------------------------------------------------------
+
+# the device analysis against the host analysis: the JAX package's own
+# device-vs-host gates (tests/test_jax_f0.py:86-90, 117-118;
+# tests/test_jax_analysis.py:48-49, 102, 131-134), the spectral ones with
+# the host F0 fed to both backends.  The max gates on D4C and codeap are
+# held on those tests' own inputs; on the full-size utterances codeap is
+# held to a median and to the share of values beyond 0.1 dB
+# (dsp/world/gates.py says why).
+F0_VOICING_MIN = 0.85        # voicing agreement
+F0_BOTH_MIN = 0.4            # share of frames voiced in both
+F0_MEDIAN_MAX = 1.0          # Hz, median |dF0| where both are voiced
+F0_NEAR_MIN = 0.9            # share of those within 10 Hz
+VOCODE_FRAMES = 4            # frames of the forced K1 check at vocode's shape
+AN_SECONDS = (3.0, 10.0)     # VCC2018 utterance lengths
+
+
+def f0_gates(f0_dev, f0_host, tag):
+    """The JAX package's F0 gates, device against host; returns the line."""
+    vd, vh = f0_dev > 0, f0_host > 0
+    both = vd & vh
+    diff = np.abs(f0_dev - f0_host)[both]
+    agree, share = float((vd == vh).mean()), float(both.mean())
+    med = float(np.median(diff)) if both.any() else float("inf")
+    near = float((diff < 10.0).mean()) if both.any() else 0.0
+    check(agree > F0_VOICING_MIN and share > F0_BOTH_MIN
+          and med < F0_MEDIAN_MAX and near > F0_NEAR_MIN,
+          f"{tag}: device F0 against host: voicing agreement {agree}, "
+          f"both voiced {share}, median |dF0| {med}, within 10 Hz {near}")
+    return (f"voicing agreement {agree:.4f} (min {F0_VOICING_MIN}), both "
+            f"voiced {share:.3f}, median |dF0| {med:.4f} Hz (max "
+            f"{F0_MEDIAN_MAX}), within 10 Hz {near:.4f}")
+
+
+def gate_inputs(dev):
+    """The device spectral stages on the card against the host backend on
+    the JAX package's own gate inputs, with their max gates (gates.py; the
+    D4C signal at its test's 22,050 Hz)."""
+    from qpnet_tpu_torch.dsp.world import gates
+    m = gates.gate_metrics(dev, d4c_fs=FS)
+    phase("analysis", f"the JAX package's gate inputs on the card: "
+                      f"CheapTrick |d| median {m['ct_median_db']:.2e} dB "
+                      f"(max {gates.CT_MEDIAN_DB}), mean "
+                      f"{m['ct_mean_db']:.2e} dB (max {gates.CT_MEAN_DB}); "
+                      f"D4C max |d| {m['d4c_max_db']:.2e} dB (max "
+                      f"{gates.D4C_MAX_DB}), voicing equal "
+                      f"{m['d4c_same_voicing']}; analyzer F0 equal "
+                      f"{m['an_f0_equal']}, mcep c0 mean |d| "
+                      f"{m['an_mcep_c0_mean']:.2e}, mean |d| "
+                      f"{m['an_mcep_mean']:.2e}, codeap max |d| "
+                      f"{m['an_codeap_max_db']:.2e} dB (max "
+                      f"{gates.CODEAP_MAX_DB})")
+    failed = gates.gate_failures(m)
+    check(not failed, f"device spectral stages on the JAX package's gate "
+                      f"inputs: {failed}")
+
+
+def analysis_smoke(dev, card):
+    """Phase 15: WorldAnalyzer's fused device pass (extract_all, harvest)
+    on synthetic 3 s and 10 s utterances at the port's AcousticConfig,
+    held to the host analysis and to the staged device path, timed in
+    whole and by stage, with its launches and peak memory; then K1 at the
+    shape vocode gives it against its twins, and Vocoder.vocode of the 3 s
+    utterance, analysis then K1.  Returns vocode's K1 launches."""
+    import torch
+
+    from qpnet_tpu_torch import Vocoder
+    from qpnet_tpu_torch.bench import idle_share, kernel_events
+    from qpnet_tpu_torch.config import AcousticConfig, ModelConfig
+    from qpnet_tpu_torch.data.stats import Scaler
+    from qpnet_tpu_torch.dsp.world import WorldAnalyzer, gates
+    from qpnet_tpu_torch.dsp.world import device_f0 as DF
+    from qpnet_tpu_torch.models import generate as G
+    from qpnet_tpu_torch.models.qpnet import init_params
+    from qpnet_tpu_torch.ops import encode_mu_law
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    t_phase = time.perf_counter()
+    ac = AcousticConfig(fs=FS, minf0=40.0, maxf0=400.0)
+    dim, alpha = ac.mcep_dim, ac.mcep_alpha
+    kw = dict(fs=FS, shiftms=ac.shiftms, minf0=ac.minf0, maxf0=ac.maxf0,
+              fftl=ac.fftl)
+    rng = np.random.default_rng(15)
+    utts = {}
+    for secs in AN_SECONDS:
+        x = gates.voiced_utterance(rng, secs, FS)
+        utts[secs] = x
+        tag = f"analysis {secs:g} s"
+        # the host analysis (float64 numpy), timed once
+        host = WorldAnalyzer(**kw)
+        t0 = time.perf_counter()
+        f0_h, ta = host.estimate_f0(x)
+        _, sp_h, _ = host.analyze(x, f0_time=(f0_h, ta))
+        mc_h, ca_h = host.mcep(dim, alpha), host.codeap()
+        host_ms = (time.perf_counter() - t0) * 1e3
+
+        # the fused device pass: queued without a sync, one fetch (after a
+        # warm-up call, which builds and uploads this length's constants)
+        dv = WorldAnalyzer(backend="jax", f0_backend="jax", device=dev,
+                           **kw)
+
+        def fused():
+            return dv.extract_all(x, dim, alpha)
+        fused()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = dv.extract_all_async(x, dim, alpha)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out = dv.extract_all_fetch(handle)
+        F = len(f0_h)
+        check(out["f0"].shape == (F,) and out["mcep"].shape == (F, dim + 1)
+              and out["codeap"].shape == (F, 2) and out["npow"].shape == (F,)
+              and all(np.isfinite(v).all() for v in out.values()),
+              f"{tag}: fused outputs' shapes and finiteness")
+        phase("analysis", f"{secs:g} s, {F} frames: extract_all queued with "
+                          f"no sync; fused device F0 against the host: "
+                          + f0_gates(out["f0"], f0_h, tag))
+
+        # the device spectral stages against the host's, given the host F0
+        st = WorldAnalyzer(backend="jax", f0_backend="host", device=dev,
+                           **kw)
+        _, sp_d, _ = st.analyze(x, f0_time=(f0_h, ta))
+        mc_d, ca_d = st.mcep(dim, alpha), st.codeap()
+        floor = sp_h.max() * 1e-9
+        err = np.abs(gates.db(np.maximum(sp_h[:, 4:-4], floor))
+                     - gates.db(np.maximum(sp_d[:, 4:-4], floor)))
+        c0 = float(np.abs(mc_h[:, 0] - mc_d[:, 0]).mean())
+        mc = float(np.abs(mc_h - mc_d).mean())
+        cm = gates.codeap_full_metrics(ca_h, ca_d)
+        phase("analysis", f"{secs:g} s, host F0 in both: CheapTrick |d| "
+                          f"median {np.median(err):.2e} dB (max "
+                          f"{gates.CT_MEDIAN_DB}), mean {err.mean():.2e} dB "
+                          f"(max {gates.CT_MEAN_DB}); mcep c0 mean |d| "
+                          f"{c0:.2e} (max {gates.MCEP_C0_MAX}), mean |d| "
+                          f"{mc:.2e} (max {gates.MCEP_MEAN_MAX}); codeap |d| "
+                          f"median {cm['codeap_median_db']:.2e} dB (max "
+                          f"{gates.CODEAP_MEDIAN_DB}), max "
+                          f"{cm['codeap_max_db']:.4f} dB, "
+                          f"{cm['codeap_n_over']} of {ca_h.size} beyond "
+                          f"{gates.CODEAP_MAX_DB} dB = "
+                          f"{cm['codeap_over']:.4f} (max "
+                          f"{gates.CODEAP_OVER_MAX})")
+        failed = gates.gate_failures(cm)
+        check(np.median(err) < gates.CT_MEDIAN_DB
+              and err.mean() < gates.CT_MEAN_DB and c0 < gates.MCEP_C0_MAX
+              and mc < gates.MCEP_MEAN_MAX and not failed,
+              f"{tag}: device spectral stages {failed}")
+
+        # fused against staged, both on the card
+        sg = WorldAnalyzer(backend="jax", f0_backend="jax", device=dev,
+                           **kw)
+        f0_s, _, _ = sg.analyze(x)
+        d_mc = float(np.abs(out["mcep"] - sg.mcep(dim, alpha)).max())
+        d_ca = float(np.abs(out["codeap"] - sg.codeap()).max())
+        d_np = float(np.abs(out["npow"] - sg.npow()).max())
+        phase("analysis", f"{secs:g} s fused against staged: F0 equal "
+                          f"{np.array_equal(out['f0'], f0_s)}, max |d| mcep "
+                          f"{d_mc:.2e} (max 1e-5), codeap {d_ca:.2e}, npow "
+                          f"{d_np:.2e} (max 1e-4)")
+        check(np.array_equal(out["f0"], f0_s) and d_mc <= 1e-5
+              and d_ca <= 1e-4 and d_np <= 1e-4, f"{tag}: fused != staged")
+
+        # times: 5 passes after the warm-up, the whole pass on the host
+        # clock from the call to the fetch, and each pass split by stage
+        # from its own CUDA events.  The device waits on the host through
+        # most of a pass, so a stage's time is mostly the host's time to
+        # queue its kernels, and the stages add up to the pass.
+        walls, splits = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            with DF.stage_marks() as marks:
+                t0 = time.perf_counter()
+                DF.mark("start", dev)
+                fused()
+                DF.mark("fetch", dev)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            splits.append(dict(DF.marks_ms(marks)))
+        mid = int(np.argsort(walls)[len(walls) // 2])
+        f0_ms = sum(v for k, v in splits[mid].items()
+                    if k.startswith("F0"))
+        events_ms = [sum(sp.values()) for sp in splits]
+        events = kernel_events(fused)
+        idle = idle_share([(ts, ts + dur) for _, ts, dur in events])
+        torch.cuda.reset_peak_memory_stats()
+        fused()
+        phase("time", f"analysis {secs:g} s ({F} frames): device (fused "
+                      f"extract_all, 5 passes after a warm-up, median "
+                      f"(lowest-highest)) {walls[mid]:.3f} "
+                      f"({min(walls):.3f}-{max(walls):.3f}) ms = "
+                      f"{walls[mid] / secs:.3f} ms per second of audio; "
+                      f"the stages' CUDA events of the same passes add up "
+                      f"to {np.median(events_ms):.3f} "
+                      f"({min(events_ms):.3f}-{max(events_ms):.3f}) ms; "
+                      f"host {host_ms:.3f} ms = {host_ms / secs:.3f} ms/s "
+                      f"(one call) | {card}")
+        phase("time", f"analysis {secs:g} s by stage, ms of the median pass "
+                      f"(share of its events' sum; lowest-highest over the "
+                      f"5 passes): " + ", ".join(
+                          f"{k} {v:.3f} ({v / events_ms[mid]:.3f}; "
+                          f"{min(sp[k] for sp in splits):.3f}-"
+                          f"{max(sp[k] for sp in splits):.3f})"
+                          for k, v in splits[mid].items())
+                      + f"; F0 in all {f0_ms:.3f} "
+                      f"({f0_ms / events_ms[mid]:.3f}) | {card}")
+        phase("time", f"analysis {secs:g} s: {len(events)} CUDA kernels "
+                      f"per utterance (torch.profiler), device idle share "
+                      f"{idle:.4f}; peak device memory {peak_mib(dev):.1f} "
+                      f"MiB | {card}")
+        torch.cuda.empty_cache()
+
+    gate_inputs(dev)
+
+    # vocode: the 3 s utterance as int16 PCM through the default network
+    # with random weights, conditioned by a scaler from its own features
+    cfg = ModelConfig()
+    up = cfg.upsampling_factor
+    voc = Vocoder(init_params(0, cfg, device=dev), cfg, None, fs=FS,
+                  device=dev)
+    pcm = np.clip(utts[AN_SECONDS[0]], -32768, 32767).astype(np.int16)
+    feats = voc.analyze(pcm)
+    check(feats.shape[1] == cfg.n_aux and np.isfinite(feats).all(),
+          f"vocode features {feats.shape}")
+    voc.scaler = Scaler(feats.mean(0), feats.std(0) + 1e-3)
+
+    # K1 at the shape vocode gives it: B=1, the utterance's maxd bucket,
+    # VOCODE_FRAMES frames around its largest d, against its twins
+    h, d = voc.conditioning(feats)
+    i = min(int(np.argmax(d)), len(d) - VOCODE_FRAMES)
+    n_k = VOCODE_FRAMES * up
+    x = np.full((1, 1), int(encode_mu_law(np.zeros(1), cfg.n_quantize)[0]),
+                np.int32)
+    maxd, x_seed, d_gen = G._seed_and_d(
+        cfg, x, np.repeat(d[i:i + VOCODE_FRAMES], up)[None], n_k)
+    want = G.bucket_maxd(float(np.nanmax(np.ceil(np.repeat(d, up)))))
+    check(maxd == want, f"vocode check's maxd bucket {maxd} != {want}")
+    h_pad, d_fr, _ = G._pallas_host_prep(
+        cfg, h[None, i:i + VOCODE_FRAMES], d_gen, n_k, dev)
+    h_pad, d_fr = h_pad[:VOCODE_FRAMES], d_fr[:VOCODE_FRAMES]
+    packed, bufF0, bufA0, x0 = G._prologue(
+        voc.params, cfg, torch.as_tensor(x_seed, device=dev), h_pad[0], maxd,
+        const_seed=True)
+    phase("vocode", f"K1 at vocode's shape: B=1, maxd bucket {maxd} (d "
+                    f"{d.min():.3f}-{d.max():.3f}), frames {i}-"
+                    f"{i + VOCODE_FRAMES - 1} of {len(d)}")
+    xf = torch.as_tensor(rng.integers(0, cfg.n_quantize, (n_k, 1, 1)),
+                         dtype=torch.int32, device=dev)
+    forced_check(K, (packed, cfg, bufF0, bufA0, x0, h_pad, d_fr, 7),
+                 dict(B=1, maxd=maxd, n_steps=n_k), xf, "vocode k1")
+    del packed, bufF0, bufA0, x0, h_pad, d_fr, xf
+
+    t0 = time.perf_counter()
+    voc.analyze(pcm)
+    analysis_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_count()
+    t0 = time.perf_counter()
+    wav = voc.vocode(pcm)
+    wall = time.perf_counter() - t0
+    launches = K.launch_count
+    F = feats.shape[0]
+    n_want = F * up - 1
+    check(wav.shape == (n_want,) and np.isfinite(wav).all()
+          and float(np.abs(wav).max()) > 1e-3 and float(wav.std()) > 1e-4,
+          f"vocode output {wav.shape} (want {n_want}), max "
+          f"{np.abs(wav).max()}, std {wav.std()}")
+    check(launches > 0, "vocode must launch K1")
+    phase("vocode", f"Vocoder(device=cuda).vocode of the "
+                    f"{AN_SECONDS[0]:g} s utterance (int16 PCM, default "
+                    f"net, random weights, sampling): "
+                    f"{wav.shape[0]} samples = F*up - 1 ({F} frames), "
+                    f"finite, max |x| {float(np.abs(wav).max()):.4f}, std "
+                    f"{float(wav.std()):.4f}; K1 launches {launches}; wall "
+                    f"{wall:.3f} s, of which analyze (the same PCM, timed "
+                    f"alone just before) {analysis_s:.3f} s, so synthesis "
+                    f"through K1 {wall - analysis_s:.3f} s; peak device "
+                    f"memory {peak_mib(dev):.1f} MiB | {card}")
+    torch.cuda.empty_cache()
+    phase("analysis", f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

@@ -7,7 +7,9 @@ generation kernel (bf16 and w8a8, the default and the deep
 `Rd10Rr3Ed4Er1` network) and through the scan engine (f32, bf16,
 int8_weights, d varying within frames), streaming generation, the
 `Vocoder` API and the TCP serving stack, single-GPU training with either
-engine, validation, reference-checkpoint conversion and the serving soak
+engine, validation, reference-checkpoint conversion, the serving soak, and
+WORLD analysis on the host (float64, bit-equal to the JAX package's) and
+on the device (plain PyTorch), which `Vocoder.analyze`/`vocode` run
 (ROADMAP.md lists the rest).
 
   config.py   model, feature and training configuration
@@ -17,6 +19,8 @@ engine, validation, reference-checkpoint conversion and the serving soak
   models/     parameters, teacher-forced forward (plain or through K2),
               ring priming, the chunked kernel loop, the scan engine and
               the streaming generator
+  dsp/        filters, continuous F0, mel-cepstra and WORLD analysis
+              (world/): the host estimators and their device counterparts
   api.py      `Vocoder`: an experiment directory as one object
   serve.py    batched streaming service and its TCP protocol
   data/       h5 feature reads, file lists, feature scaler, the training

@@ -11,10 +11,12 @@ dilation factors from the optionally F0-scaled track, mu-law-zero seed and
 `F*up - 1` samples), so `synthesize()` returns what `qpnet_decode` writes.
 `stream()` yields audio chunks while the card generates them, through the
 `StreamingGenerator` that the serving stack (qpnet_tpu_torch/serve.py) uses.
-Everything runs on `device` (CUDA by default; "cpu" runs the kernel's plain
-twin).  `engine` and `quantize` take what `batch_fast_generate` takes: the
-scan engine ("xla", "int8_weights") serves `synthesize`; `stream` runs the
-kernel, so it refuses "int8_weights".
+`vocode(wav)` analyzes a waveform with WORLD (`analyze`) and synthesizes it
+again.  Everything runs on `device` (CUDA by default; "cpu" runs the
+kernel's plain twin and the device analysis on the CPU).  `engine` and
+`quantize` take what `batch_fast_generate` takes: the scan engine ("xla",
+"int8_weights") serves `synthesize`; `stream` runs the kernel, so it
+refuses "int8_weights".
 """
 
 from __future__ import annotations
@@ -28,10 +30,6 @@ from qpnet_tpu_torch.config import ModelConfig, RunConfig
 from qpnet_tpu_torch.data.stats import Scaler, load_scaler
 from qpnet_tpu_torch.models.qpnet import params_to, resolve_device
 from qpnet_tpu_torch.ops import decode_mu_law, dilated_factor, encode_mu_law
-
-_ROADMAP_ANALYSIS = ("WORLD analysis (the feature frontend of analyze and "
-                     "vocode) is not ported yet: ROADMAP.md, Queue 1 items "
-                     "5 and 7")
 
 
 class Vocoder:
@@ -115,14 +113,79 @@ class Vocoder:
 
     # ---- analysis frontend (wav -> conditioning features) ----
 
-    def analyze(self, wav: np.ndarray, **analyze_kw) -> np.ndarray:
-        """Waveform -> raw `/world` aux features: not ported yet."""
-        raise NotImplementedError(_ROADMAP_ANALYSIS)
+    def analyze(self, wav: np.ndarray, minf0: float = 40.0,
+                maxf0: float = 400.0, f0_analyzer: str = "harvest",
+                dsp_backend: str = "jax") -> np.ndarray:
+        """One utterance's waveform -> raw `/world`-schema aux features
+        (F, n_aux) = [uv | cont-F0(20 Hz LPF) | mcep | codeap], what
+        `feature_extract` writes and `synthesize()` conditions on.
+
+        The feature geometry (mcep dim/alpha, fftl, shift) comes from the
+        fs-keyed AcousticConfig table, as in the training recipe.  `wav`
+        may be float in [-1, 1) (the synthesize() output convention) or
+        int16-scale; analysis runs at int16 scale, like the recipe.
+        dsp_backend="jax" (the JAX package's value; here: on the torch
+        device) runs the fused device pass on the vocoder's device
+        (WorldAnalyzer.extract_all); "numpy" is the float64 host path."""
+        from qpnet_tpu_torch.config import AcousticConfig
+        from qpnet_tpu_torch.dsp import low_cut_filter
+        from qpnet_tpu_torch.dsp.contf0 import smoothed_continuous_f0
+        from qpnet_tpu_torch.dsp.world import WorldAnalyzer
+
+        ac = AcousticConfig(fs=self.fs, minf0=minf0, maxf0=maxf0)
+        in_dtype = np.asarray(wav).dtype
+        was_integer = np.issubdtype(in_dtype, np.integer)
+        x = np.asarray(wav, np.float64)
+        if x.ndim != 1:
+            raise ValueError(f"wav must be 1-D, got {x.shape}")
+        if x.size == 0:
+            raise ValueError("empty waveform (0 samples)")
+        # integer PCM is rescaled from its container's full-scale range to
+        # int16 scale (int16 passes through; unsigned PCM is offset-binary,
+        # so its midpoint is removed first); a float whose peak is <= 1.0
+        # is taken as a normalized clip and rescaled, a larger one passes
+        # through — pre-scale a quiet int16-scale float
+        if was_integer and in_dtype != np.int16:
+            info = np.iinfo(in_dtype)
+            if info.min == 0:
+                x = x - (float(info.max) + 1.0) / 2.0
+            x = x * (32768.0 / ((float(info.max) + 1.0)
+                                / (2.0 if info.min == 0 else 1.0)))
+        elif not was_integer and np.abs(x).max() <= 1.0:
+            x = x * 32768.0
+        if ac.highpass_cutoff:
+            x = low_cut_filter(x, self.fs, cutoff=ac.highpass_cutoff)
+        analyzer = WorldAnalyzer(
+            fs=self.fs, shiftms=ac.shiftms, minf0=minf0, maxf0=maxf0,
+            fftl=ac.fftl, f0_analyzer=f0_analyzer, backend=dsp_backend,
+            f0_backend="jax" if dsp_backend == "jax" else "host",
+            device=self.device)
+        if dsp_backend == "jax":
+            out = analyzer.extract_all(x, dim=ac.mcep_dim,
+                                       alpha=ac.mcep_alpha)
+            f0, mcep, codeap = out["f0"], out["mcep"], out["codeap"]
+        else:
+            f0, _, _ = analyzer.analyze(x)
+            mcep = analyzer.mcep(dim=ac.mcep_dim, alpha=ac.mcep_alpha)
+            codeap = analyzer.codeap()
+        uv, cont_f0_lpf = smoothed_continuous_f0(f0, ac.shiftms)
+        feats = np.concatenate(
+            [uv[:, None], cont_f0_lpf[:, None], mcep, codeap], axis=1)
+        if feats.shape[1] != self.cfg.n_aux:
+            raise ValueError(
+                f"analysis produced {feats.shape[1]}-dim features but the "
+                f"model expects n_aux={self.cfg.n_aux}; the model was "
+                "trained with a non-default feature geometry — extract "
+                "features with the training recipe instead")
+        return feats.astype(np.float32)
 
     def vocode(self, wav: np.ndarray, f0_factor: float = 1.0,
                **analyze_kw) -> np.ndarray:
-        """analyze() then synthesize(): not ported yet (needs analyze)."""
-        raise NotImplementedError(_ROADMAP_ANALYSIS)
+        """wav in, re-vocoded wav out: analyze() then synthesize(), with
+        optional F0 scaling (the reference recipe decodes at F0 x0.5 and
+        x1.5).  By default both halves run on the vocoder's device."""
+        return self.synthesize(self.analyze(wav, **analyze_kw),
+                               f0_factor=f0_factor)
 
     # ---- one-shot synthesis ----
 

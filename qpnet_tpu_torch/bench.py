@@ -109,13 +109,9 @@ def k1_bound(args, B, n_steps, quantize="none"):
             (main + rest) / 1e9, weights / HBM_BYTES_PER_S * 1e6)
 
 
-def kernel_us_per_step(args, kw, n_steps):
-    """(device us per step of each of K1's CUDA kernels, device idle share)
-    over one K1 call, from torch.profiler's trace; (None, None) where the
-    profiler saw no kernel.  Under programmatic dependent launch a kernel
-    starts while the one before it finishes and waits for it on the card,
-    so the kernels' times add up to more than the step; the idle share is
-    the part of the call's device span that no kernel covers."""
+def kernel_events(fn):
+    """[(name, start us, duration us)] of every CUDA kernel one call of fn
+    ran, from torch.profiler's trace."""
     import os
     import tempfile
 
@@ -123,7 +119,7 @@ def kernel_us_per_step(args, kw, n_steps):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        K.generate(*args, **kw)
+        fn()
         torch.cuda.synchronize()
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
@@ -133,19 +129,15 @@ def kernel_us_per_step(args, kw, n_steps):
             trace = json.load(f)
     finally:
         os.unlink(path)
-    out, spans = {}, []
-    for ev in trace.get("traceEvents", []):
-        if ev.get("cat") != "kernel" or ev.get("ph") != "X":
-            continue
-        key = ev["name"].replace(" ", "")
-        name = next((n for n, k in KERNELS.items() if k in key), None)
-        if name is None:
-            continue
-        out[name] = out.get(name, 0.0) + float(ev["dur"]) / n_steps
-        spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
-    if not spans:
-        return None, None
-    spans.sort()
+    return [(ev["name"], float(ev["ts"]), float(ev["dur"]))
+            for ev in trace.get("traceEvents", [])
+            if ev.get("cat") == "kernel" and ev.get("ph") == "X"]
+
+
+def idle_share(spans) -> float:
+    """The part of the device span from the first kernel's start to the
+    last one's end that no kernel of `spans` [(start, end)] covers."""
+    spans = sorted(spans)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -155,7 +147,27 @@ def kernel_us_per_step(args, kw, n_steps):
             hi = max(hi, b)
     busy += hi - lo
     span = max(b for _, b in spans) - spans[0][0]
-    return out, 1.0 - busy / span
+    return 1.0 - busy / span
+
+
+def kernel_us_per_step(args, kw, n_steps):
+    """(device us per step of each of K1's CUDA kernels, device idle share)
+    over one K1 call, from torch.profiler's trace; (None, None) where the
+    profiler saw no kernel.  Under programmatic dependent launch a kernel
+    starts while the one before it finishes and waits for it on the card,
+    so the kernels' times add up to more than the step; the idle share is
+    the part of the call's device span that no kernel covers."""
+    out, spans = {}, []
+    for name, ts, dur in kernel_events(lambda: K.generate(*args, **kw)):
+        key = name.replace(" ", "")
+        name = next((n for n, k in KERNELS.items() if k in key), None)
+        if name is None:
+            continue
+        out[name] = out.get(name, 0.0) + dur / n_steps
+        spans.append((ts, ts + dur))
+    if not spans:
+        return None, None
+    return out, idle_share(spans)
 
 
 def step_ms(args, kw, reps=3) -> float:

@@ -3,7 +3,10 @@
 wrote.  `synthesize` must write what the port's decode CLI writes, F0 scaling
 included, and equal JAX's `Vocoder(interpret=True)` in argmax mode; the
 conditioning contract, batch order and lengths, and session reuse of
-`stream` follow the JAX API."""
+`stream` follow the JAX API.  `analyze` on the host backend and `vocode`
+through it equal JAX's bit for bit, PCM rescaling included; `analyze` on
+the device backend (the default) stays within
+tests/test_torch_port_dsp_device.py's tolerances of JAX's."""
 
 import jax
 import numpy as np
@@ -16,6 +19,7 @@ from qpnet_tpu.config import ModelConfig as JaxConfig
 from qpnet_tpu.config import RunConfig as JaxRunConfig
 from qpnet_tpu.data.h5io import write_hdf5
 from qpnet_tpu.models import init_params as jax_init_params
+from qpnet_tpu.tools.make_synth_corpus import synth_utterance
 from qpnet_tpu.train.checkpoint import save_checkpoint, save_final
 from qpnet_tpu_torch import Vocoder
 from qpnet_tpu_torch.data.stats import Scaler, load_scaler
@@ -27,6 +31,7 @@ TINY = dict(n_quantize=32, n_aux=4, n_resch=16, n_skipch=8,
             dilationA_depth=2, dilationA_repeat=1,
             kernel_size=2, upsampling_factor=5)
 FS = 1000
+AN_FS = 16000
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +54,24 @@ def expdir(tmp_path_factory):
     feats[:, 1] = rng.uniform(80.0, 120.0, F)        # d = fs/(f0*8) < 2
     write_hdf5(str(tmp / "utt1.h5"), "/world", feats)
     return tmp, cfg, params, feats
+
+
+@pytest.fixture(scope="module")
+def an_expdir(tmp_path_factory):
+    """A JAX-written experiment with the 16 kHz analysis geometry (n_aux =
+    28: uv, cont-F0, 25 mcep, 1 codeap), its stats taken from the JAX host
+    analysis of a 0.6 s synthetic utterance, and that utterance as a
+    normalized float clip."""
+    tmp = tmp_path_factory.mktemp("port_api_an")
+    cfg = JaxConfig(**dict(TINY, n_aux=28))
+    save_final(str(tmp), jax_init_params(jax.random.PRNGKey(1), cfg))
+    JaxRunConfig(model=cfg, fs=AN_FS).save(str(tmp / "model.conf"))
+    wav = synth_utterance(np.random.default_rng(2), AN_FS, 0.6, 150.0)
+    jv = JaxVocoder(None, cfg, None, fs=AN_FS)
+    feats = jv.analyze(wav, dsp_backend="numpy")
+    write_hdf5(str(tmp / "stats.h5"), "/world/mean", feats.mean(0))
+    write_hdf5(str(tmp / "stats.h5"), "/world/scale", feats.std(0) + 1e-3)
+    return tmp, wav
 
 
 def load(tmp, **kw):
@@ -178,21 +201,23 @@ def test_feats_shape_validated(expdir):
 
 
 def test_what_is_not_ported_raises(expdir):
-    """analyze and vocode wait for the host DSP; the scan engine's
-    combinations load and synthesize what batch_fast_generate gives, while
-    int8_weights cannot stream (the kernel has no weight-only scheme)."""
+    """`qpnet_serve --noise_shaping` waits for the emphasis filter; the scan
+    engine's combinations load and synthesize what batch_fast_generate
+    gives, while int8_weights cannot stream (the kernel has no weight-only
+    scheme)."""
+    from qpnet_tpu_torch.bin import qpnet_serve
     from qpnet_tpu_torch.models import batch_fast_generate
     from qpnet_tpu_torch.ops import encode_mu_law
 
     tmp, cfg, _, feats = expdir
     x0 = np.full((1, 1), int(encode_mu_law(np.zeros(1), cfg.n_quantize)[0]),
                  np.int32)
-    voc = load(tmp)
-    tone = np.sin(np.arange(2000) / 10.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        voc.analyze(tone)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        voc.vocode(tone, f0_factor=1.5)
+        qpnet_serve.main([
+            "--config", str(tmp / "model.conf"),
+            "--stats", str(tmp / "stats.h5"),
+            "--checkpoint", str(tmp / "checkpoint-final.pkl"),
+            "--device", "cpu", "--noise_shaping"])
     for kw in ({"engine": "xla"}, {"quantize": "int8_weights"}):
         v = load(tmp, mode="argmax", **kw)
         h, d = v.conditioning(feats)
@@ -216,3 +241,70 @@ def test_defaults_to_cuda(expdir):
     tmp, _, _, _ = expdir
     with pytest.raises(RuntimeError, match="CUDA"):
         Vocoder.load(str(tmp), stats=str(tmp / "stats.h5"))
+
+
+# ---- analysis frontend ----
+
+def _jax_vocoder(tmp, **kw):
+    return JaxVocoder.load(str(tmp), stats=str(tmp / "stats.h5"),
+                           engine="pallas", interpret=True, **kw)
+
+
+@pytest.mark.parametrize("f0_factor", [1.0, 1.5])
+def test_vocode_host_backend_matches_jax_vocoder_argmax(an_expdir,
+                                                        f0_factor):
+    """The host analysis is bit-equal, and synthesis in argmax mode is, so
+    the whole vocode is."""
+    tmp, wav = an_expdir
+    want = _jax_vocoder(tmp, mode="argmax").vocode(
+        wav, f0_factor=f0_factor, dsp_backend="numpy")
+    voc = load(tmp, mode="argmax")
+    got = voc.vocode(wav, f0_factor=f0_factor, dsp_backend="numpy")
+    F = int(len(wav) / (AN_FS * 0.005)) + 1
+    assert got.shape == (F * voc.cfg.upsampling_factor - 1,)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_analyze_device_backend_matches_jax(an_expdir):
+    """The default dsp_backend="jax" (the fused device pass, here on the
+    CPU) against JAX's fused pass: [uv | cont-F0 | mcep | codeap] within
+    tests/test_torch_port_dsp_device.py's tolerances."""
+    tmp, wav = an_expdir
+    want = _jax_vocoder(tmp).analyze(wav)
+    got = load(tmp).analyze(wav)
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert (got[:, 0] == want[:, 0]).mean() >= 0.99       # voicing
+    both = (got[:, 0] > 0) & (want[:, 0] > 0)
+    assert both.mean() > 0.3
+    assert np.median(np.abs(got[both, 1] - want[both, 1])) <= 0.05
+    assert np.abs(got[:, 2:-1] - want[:, 2:-1]).mean() <= 1e-3
+    assert np.median(np.abs(got[:, -1] - want[:, -1])) <= 0.01
+
+
+@pytest.mark.parametrize("kind", ["int16", "int32", "uint8", "float"])
+def test_analyze_pcm_rescaling_matches_jax(an_expdir, kind):
+    """Integer PCM is rescaled from its container's full scale (unsigned
+    PCM offset-binary), a float in [-1, 1) by 32768, as in JAX."""
+    tmp, wav = an_expdir
+    pcm = {"int16": lambda w: (w * 32767).astype(np.int16),
+           "int32": lambda w: (w * 2 ** 31).astype(np.int32),
+           "uint8": lambda w: np.round(w * 127 + 128).astype(np.uint8),
+           "float": lambda w: w}[kind](wav)
+    want = _jax_vocoder(tmp).analyze(pcm, dsp_backend="numpy")
+    got = load(tmp).analyze(pcm, dsp_backend="numpy")
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 0] > 0).mean() > 0.3
+
+
+def test_analyze_validates_its_input(expdir, an_expdir):
+    tmp, _ = an_expdir
+    voc = load(tmp)
+    with pytest.raises(ValueError, match="1-D"):
+        voc.analyze(np.zeros((2, 100)))
+    with pytest.raises(ValueError, match="empty"):
+        voc.analyze(np.zeros(0))
+    # a model whose aux width is not the analysis geometry's
+    with pytest.raises(ValueError, match="n_aux"):
+        Vocoder.load(str(expdir[0]), device="cpu", fs=AN_FS).analyze(
+            np.sin(np.arange(4000) / 10.0), dsp_backend="numpy")
