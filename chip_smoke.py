@@ -100,7 +100,40 @@ Phases, each reported on its own line; any failure exits non-zero:
      the default net (random weights, a scaler from its own features):
      F*up - 1 finite, non-silent samples, K1 launched; its wall time beside
      `analyze` of the same PCM timed alone.
-Each main path (phases 4, 7, 10, 12-15) also prints its peak device memory.
+ 16. the recipe's workers on a synthetic corpus (4 int16 voiced utterances
+     of 1.0-2.0 s, 22,050 Hz, seed 16): `feature_extract.main` with the
+     host backends through 2 spawned workers, with both device backends on
+     the card (the fused pass, pipelined at depth 2) and with the device
+     spectral stages fed the host F0 from 2 threads: h5 schemas equal,
+     the fused F0 on phase 15's gates, the staged features on its spectral
+     gates; `calc_stats.main` within 1e-12 of one float64 batch;
+     `noise_shaping.main` equal to `emphasize` of each wav, and 0.25 s of
+     MLSA through the C++ core within 1e-12 of scale of the plain
+     per-sample loop; the restore pass on the card (`--inv false
+     --dsp_backend jax`): one utterance queued under
+     `set_sync_debug_mode("error")`, pulse times (index plus fractional
+     shift) within 1e-6 sample of the host's, the
+     ap = 0 waveform on the JAX package's gates (correlation > 0.999, rms
+     |d| < 5e-3 of rms), MCD on the JAX test's restore inputs at most the
+     host's seed-to-seed floor + 0.1 dB; K1 against its twins in forced
+     mode at the decode's shape (B=4, the features' maxd bucket, 2 frames
+     around the largest d, on phase 3's f64 gate), then `qpnet_decode.main`
+     of the 4 feature files at B=4 through K1 (default net, random weights
+     seed 0; launched), `noise_restored.main` equal to `emphasize` of each
+     decoded wav; then K1 against its twins likewise at the serving
+     session's shape (B=4, its maxd), and the default net at bf16 behind
+     `serve_tcp` with the serve CLI's own `--noise_shaping` filter and
+     frontend, 3 TCP streams of 100 frames: argmax PCM equal to a direct
+     `StreamingGenerator` through one-shot `emphasize`; sampling time to
+     first audio and realtime factor with and without the filter; times
+     (extraction, shaping and synthesis ms per second of audio, host and
+     device; the filter's ms per 5,500-sample chunk beside K1's feed of
+     it).  K1's launches go into the `kernels` line's `launches_by_path`
+     as "recipe" and "serve_ns".
+     Where h5py is missing (the card's machine has none), the phase's h5
+     files go through a stand-in for `h5py.File` (pickled arrays), and its
+     CLI walls say so.
+Each main path (phases 4, 7, 10, 12-16) also prints its peak device memory.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
@@ -127,6 +160,78 @@ FS = 22050
 F64_TOL = 2e-2
 ARGMAX_AGREE_MIN = 0.98
 AGREE_MIN = 0.85             # argmax/sampling agreement over 40 samples
+H5_STAND_IN_ENV = "QPNET_SMOKE_H5_STAND_IN"   # phase 16's workers: see below
+
+
+def _install_h5_stand_in() -> bool:
+    """Where h5py is missing (the card's machine has none), register a
+    stand-in for the part of `h5py.File` the port's h5 I/O uses: a file
+    holds a pickled dict of numpy arrays, datasets by path, a group being
+    a path prefix.  Phase 16's workers then run their file I/O unchanged;
+    the h5 format itself, read and written by each package for the other,
+    is checked on the CPU (tests/test_torch_port_features_io.py).  Phase
+    16 installs it and sets H5_STAND_IN_ENV, so the workers it spawns,
+    which import the main module first, install it too.  Returns True
+    when installed."""
+    try:
+        import h5py  # noqa: F401
+        return False
+    except ImportError:
+        pass
+    import pickle
+    import types
+
+    class Dataset:
+        def __init__(self, a):
+            self._a = a
+            self.shape = a.shape
+
+        def __getitem__(self, key):
+            return self._a[key]
+
+    class File:
+        def __init__(self, name, mode="r"):
+            self.name, self.mode, self.sets = name, mode, {}
+            if os.path.exists(name):
+                with open(name, "rb") as f:
+                    self.sets = pickle.load(f)
+            elif mode == "r":
+                raise FileNotFoundError(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            if self.mode != "r" and exc[0] is None:
+                with open(self.name, "wb") as f:
+                    pickle.dump(self.sets, f)
+
+        def __contains__(self, path):
+            k = path.strip("/")
+            return k in self.sets or any(n.startswith(k + "/")
+                                         for n in self.sets)
+
+        def __getitem__(self, path):
+            return Dataset(self.sets[path.strip("/")])
+
+        def __delitem__(self, path):
+            del self.sets[path.strip("/")]
+
+        def create_dataset(self, path, data):
+            self.sets[path.strip("/")] = np.array(data)
+
+        def visititems(self, fn):
+            for k in sorted(self.sets):
+                fn(k, Dataset(self.sets[k]))
+
+    mod = types.ModuleType("h5py")
+    mod.File, mod.Dataset = File, Dataset
+    sys.modules["h5py"] = mod
+    return True
+
+
+if os.environ.get(H5_STAND_IN_ENV) == "1":
+    _install_h5_stand_in()
 
 
 def phase(name: str, msg: str) -> None:
@@ -195,6 +300,43 @@ def forced_check(K, common, kw, xf, tag):
     check(err <= tol, f"{tag} forced logits {err} > {tol} from the f64 twin")
     check(agree >= ARGMAX_AGREE_MIN, f"{tag} argmax agreement {agree}")
     return err, twin_ms, k_out[0]
+
+
+def path_shape_check(K, params, cfg, h, d, frames, rng, dev, tag):
+    """K1 against its twins in forced mode (`forced_check`) at the shape a
+    path gives it: h (B, F, n_aux) standardized aux and d (B, F) frame-rate
+    dilation factors as the path builds them, at the maxd bucket of all of
+    d, over `frames` frames around its largest value, the rings primed
+    from a mid-scale seed and the window's first frame.  Returns the max
+    |dlogit| to the f64 twin and the maxd bucket."""
+    import torch
+    from qpnet_tpu_torch.models import generate as G
+    from qpnet_tpu_torch.ops import encode_mu_law
+    B, F = d.shape
+    up = cfg.upsampling_factor
+    i = max(0, min(int(np.argmax(d.max(0))), F - frames))
+    n_k = frames * up
+    x = np.full((B, 1), int(encode_mu_law(np.zeros(1), cfg.n_quantize)[0]),
+                np.int32)
+    maxd, x_seed, d_gen = G._seed_and_d(
+        cfg, x, np.repeat(d[:, i:i + frames], up, axis=1), n_k)
+    want = G.bucket_maxd(float(np.nanmax(np.ceil(d))))
+    check(maxd == want, f"{tag}: maxd bucket {maxd} != {want}")
+    h_pad, d_fr, _ = G._pallas_host_prep(cfg, h[:, i:i + frames], d_gen,
+                                         n_k, dev)
+    h_pad, d_fr = h_pad[:frames], d_fr[:frames]
+    packed, bufF0, bufA0, x0 = G._prologue(
+        params, cfg, torch.as_tensor(x_seed, device=dev), h_pad[0], maxd,
+        const_seed=True)
+    phase(tag, f"K1 at the path's shape: B={B}, maxd bucket {maxd} (d "
+               f"{d.min():.3f}-{d.max():.3f}), frames {i}-{i + frames - 1} "
+               f"of {F}")
+    xf = torch.as_tensor(rng.integers(0, cfg.n_quantize, (n_k, 1, B)),
+                         dtype=torch.int32, device=dev)
+    err, _, _ = forced_check(K, (packed, cfg, bufF0, bufA0, x0, h_pad, d_fr,
+                                 7), dict(B=B, maxd=maxd, n_steps=n_k), xf,
+                             tag)
+    return err, maxd
 
 
 def sample_check(K, common, kw, tag):
@@ -268,11 +410,15 @@ def main() -> int:
     # 2. build every source in parallel (one nvcc each)
     t0 = time.perf_counter()
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(len(names)) as ex:
-        libs = list(ex.map(lambda n: _build.build(n, verbose=True), names))
+    host = sorted(p.stem for p in _build.CSRC.glob("*.cpp"))
+    with ThreadPoolExecutor(len(names) + len(host)) as ex:
+        libs = [ex.submit(_build.build, n, verbose=True) for n in names]
+        libs += [ex.submit(_build.build_host, n) for n in host]
+        libs = [f.result() for f in libs]
     K.build()
     TK.build()
-    phase("build", f"{len(libs)} source(s) {names} built in "
+    phase("build", f"{len(libs)} source(s) {names} with nvcc and {host} "
+                   f"with the host C++ compiler built in "
                    f"{time.perf_counter() - t0:.2f} s")
 
     kernels = smoke(ModelConfig(), dev, card)
@@ -284,6 +430,8 @@ def main() -> int:
         "converted_decode": tools_smoke(ModelConfig(), dev, card),
         "soak": soak_smoke(dev, card)}
     kernels[0]["launches_by_path"]["vocode"] = analysis_smoke(dev, card)
+    (kernels[0]["launches_by_path"]["recipe"],
+     kernels[0]["launches_by_path"]["serve_ns"]) = recipe_smoke(dev, card)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -718,7 +866,7 @@ def memory_corpus(cfg, seed, n_utts=3, seconds=(2.0, 3.0)):
     frames = np.concatenate([u[2] for u in utts])
     mean, scale = frames.mean(0), frames.std(0)
     mean[0], scale[0] = 0.0, 1.0
-    return utts, Scaler(mean, scale)
+    return utts, Scaler.from_stats(mean, scale)
 
 
 def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
@@ -1369,9 +1517,7 @@ def analysis_smoke(dev, card):
     from qpnet_tpu_torch.data.stats import Scaler
     from qpnet_tpu_torch.dsp.world import WorldAnalyzer, gates
     from qpnet_tpu_torch.dsp.world import device_f0 as DF
-    from qpnet_tpu_torch.models import generate as G
     from qpnet_tpu_torch.models.qpnet import init_params
-    from qpnet_tpu_torch.ops import encode_mu_law
     from qpnet_tpu_torch.ops import gen_kernel as K
     t_phase = time.perf_counter()
     ac = AcousticConfig(fs=FS, minf0=40.0, maxf0=400.0)
@@ -1521,33 +1667,13 @@ def analysis_smoke(dev, card):
     feats = voc.analyze(pcm)
     check(feats.shape[1] == cfg.n_aux and np.isfinite(feats).all(),
           f"vocode features {feats.shape}")
-    voc.scaler = Scaler(feats.mean(0), feats.std(0) + 1e-3)
+    voc.scaler = Scaler.from_stats(feats.mean(0), feats.std(0) + 1e-3)
 
     # K1 at the shape vocode gives it: B=1, the utterance's maxd bucket,
     # VOCODE_FRAMES frames around its largest d, against its twins
     h, d = voc.conditioning(feats)
-    i = min(int(np.argmax(d)), len(d) - VOCODE_FRAMES)
-    n_k = VOCODE_FRAMES * up
-    x = np.full((1, 1), int(encode_mu_law(np.zeros(1), cfg.n_quantize)[0]),
-                np.int32)
-    maxd, x_seed, d_gen = G._seed_and_d(
-        cfg, x, np.repeat(d[i:i + VOCODE_FRAMES], up)[None], n_k)
-    want = G.bucket_maxd(float(np.nanmax(np.ceil(np.repeat(d, up)))))
-    check(maxd == want, f"vocode check's maxd bucket {maxd} != {want}")
-    h_pad, d_fr, _ = G._pallas_host_prep(
-        cfg, h[None, i:i + VOCODE_FRAMES], d_gen, n_k, dev)
-    h_pad, d_fr = h_pad[:VOCODE_FRAMES], d_fr[:VOCODE_FRAMES]
-    packed, bufF0, bufA0, x0 = G._prologue(
-        voc.params, cfg, torch.as_tensor(x_seed, device=dev), h_pad[0], maxd,
-        const_seed=True)
-    phase("vocode", f"K1 at vocode's shape: B=1, maxd bucket {maxd} (d "
-                    f"{d.min():.3f}-{d.max():.3f}), frames {i}-"
-                    f"{i + VOCODE_FRAMES - 1} of {len(d)}")
-    xf = torch.as_tensor(rng.integers(0, cfg.n_quantize, (n_k, 1, 1)),
-                         dtype=torch.int32, device=dev)
-    forced_check(K, (packed, cfg, bufF0, bufA0, x0, h_pad, d_fr, 7),
-                 dict(B=1, maxd=maxd, n_steps=n_k), xf, "vocode k1")
-    del packed, bufF0, bufA0, x0, h_pad, d_fr, xf
+    path_shape_check(K, voc.params, cfg, h[None], d[None], VOCODE_FRAMES, rng,
+                     dev, "vocode k1")
 
     t0 = time.perf_counter()
     voc.analyze(pcm)
@@ -1578,6 +1704,516 @@ def analysis_smoke(dev, card):
     torch.cuda.empty_cache()
     phase("analysis", f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# --- phase 16: the recipe's workers on the card ----------------------------
+
+NS_SECONDS = (1.0, 1.3, 1.7, 2.0)   # the synthetic corpus of phase 16
+NS_STREAMS = 3                      # TCP streams served with --noise_shaping
+NS_FRAMES = 100                     # frames each stream plays (0.5 s)
+NS_CHUNK = 5500                     # samples of a served chunk
+NS_K1_FRAMES = 2                    # frames of the forced K1 checks
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _h5_sets(path):
+    import h5py
+    with h5py.File(path, "r") as f:
+        out = {}
+        f.visititems(lambda k, v: out.__setitem__(k, v[()])
+                     if isinstance(v, h5py.Dataset) else None)
+    return out
+
+
+def _schema(sets):
+    """Datasets with their dtypes and shapes; /vad_idx's length follows the
+    frames' power, so only its rank counts."""
+    return {k: (v.dtype, v.ndim if k == "vad_idx" else v.shape)
+            for k, v in sets.items()}
+
+
+def _recipe_corpus(root, rng):
+    """NS_SECONDS of int16 voiced utterances under root/wav, the list of
+    them, and the seconds of audio."""
+    from scipy.io import wavfile
+
+    from qpnet_tpu_torch.dsp.world import gates
+    os.makedirs(os.path.join(root, "wav"))
+    paths = []
+    for i, secs in enumerate(NS_SECONDS):
+        x = gates.voiced_utterance(rng, secs, FS)
+        p = os.path.join(root, "wav", f"utt{i}.wav")
+        wavfile.write(p, FS, np.clip(x, -32768, 32767).astype(np.int16))
+        paths.append(p)
+    lst = os.path.join(root, "wav.scp")
+    with open(lst, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    return paths, lst
+
+
+def recipe_smoke(dev, card):
+    """Phase 16: the recipe's workers (feature_extract on the host through
+    the spawn pool and on the card, calc_stats, noise_shaping, the restore
+    pass on the card, qpnet_decode through K1, noise_restored) on a
+    synthetic corpus, then qpnet_serve's --noise_shaping filter on 3 TCP
+    streams.  Returns K1's launches on the recipe's decode and on the
+    noise-shaped serving runs."""
+    import shutil
+    import threading
+
+    import torch
+    from scipy.io import wavfile
+
+    from qpnet_tpu_torch import serve as S
+    from qpnet_tpu_torch.bin import (calc_stats, feature_extract,
+                                     noise_restored, noise_shaping,
+                                     qpnet_decode, qpnet_serve)
+    from qpnet_tpu_torch.config import ModelConfig, RunConfig
+    from qpnet_tpu_torch.data import load_scaler, read_hdf5, write_hdf5
+    from qpnet_tpu_torch.dsp import mlsa
+    from qpnet_tpu_torch.dsp.emphasis import (StreamingEmphasizer,
+                                              emphasis_coefs, emphasize,
+                                              frame_count)
+    from qpnet_tpu_torch.dsp.mcep import mc2b, mc2sp
+    from qpnet_tpu_torch.dsp.world import WorldSynthesizer, gates
+    from qpnet_tpu_torch.dsp.world import device_synthesis as DX
+    from qpnet_tpu_torch.dsp.world.codec import decode_aperiodicity
+    from qpnet_tpu_torch.dsp.world.synthesis import _pulse_times, synthesize
+    from qpnet_tpu_torch.models.generate import (StreamingGenerator,
+                                                 bucket_maxd)
+    from qpnet_tpu_torch.models.qpnet import init_params
+    from qpnet_tpu_torch.ops import decode_mu_law
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    from qpnet_tpu_torch.tools.evaluate import wav_metrics
+    from qpnet_tpu_torch.train.checkpoint import save_final
+    t_phase = time.perf_counter()
+    # the workers rename "wav" anywhere in a path, so the temp dir has none
+    for _ in range(5):
+        tmp = tempfile.mkdtemp(prefix="qp16_")
+        if "wav" not in tmp:
+            break
+        os.rmdir(tmp)
+    check("wav" not in tmp, f"temp dir {tmp} must not contain 'wav'")
+    dv = dev.type
+    stand_in = _install_h5_stand_in()
+    io = ""
+    if stand_in:
+        os.environ[H5_STAND_IN_ENV] = "1"
+        io = "; h5 files through the h5py stand-in (pickle, not HDF5)"
+        phase("recipe", "h5py is not installed here: the workers' h5 files "
+                        "go through chip_smoke's stand-in for h5py.File, "
+                        "so the CLI walls below time pickle I/O, not HDF5")
+    try:
+        rng = np.random.default_rng(16)
+        host_root, dev_root = (os.path.join(tmp, n) for n in ("host", "dev"))
+        os.makedirs(host_root)
+        paths, lst = _recipe_corpus(host_root, rng)
+        shutil.copytree(os.path.join(host_root, "wav"),
+                        os.path.join(dev_root, "wav"))
+        audio_s = float(sum(NS_SECONDS))
+        ids = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+        common = ["--fs", str(FS), "--verbose", "0"]
+
+        # extraction: host backends through 2 spawned workers; both device
+        # backends on the card (the fused pass, pipelined at depth 2); the
+        # device spectral stages with the host F0 in 2 threads (staged)
+        _, host_s = _timed(lambda: feature_extract.main(
+            ["--waveforms", lst, "--n_jobs", "2"] + common))
+        torch.cuda.reset_peak_memory_stats()
+        dev_args = ["--waveforms", os.path.join(dev_root, "wav"),
+                    "--dsp_backend", "jax", "--f0_backend", "jax",
+                    "--device", dv] + common
+        feature_extract.main(dev_args + ["--feature_dir",
+                                         os.path.join(tmp, "warm/")])
+        torch.cuda.synchronize()
+        _, dev_s = _timed(lambda: feature_extract.main(dev_args))
+        ext_mib = peak_mib(dev)
+        staged = os.path.join(tmp, "staged/")
+        feature_extract.main(
+            ["--waveforms", os.path.join(dev_root, "wav"), "--dsp_backend",
+             "jax", "--f0_backend", "host", "--n_jobs", "2", "--device", dv,
+             "--feature_dir", staged] + common)
+        feats = [os.path.join(host_root, "h5", f"{i}.h5") for i in ids]
+        for i, utt in enumerate(ids):
+            h = _h5_sets(feats[i])
+            d = _h5_sets(os.path.join(dev_root, "h5", f"{utt}.h5"))
+            s = _h5_sets(os.path.join(staged, f"{utt}.h5"))
+            schema = _schema(h)
+            check(schema == _schema(d) == _schema(s),
+                  f"{utt}: h5 schemas differ: {schema} {_schema(d)} "
+                  f"{_schema(s)}")
+            line = f0_gates(d["f0"], h["f0"], f"recipe {utt}")
+            check(np.array_equal(s["f0"], h["f0"]),
+                  f"{utt}: the staged path must keep the host F0")
+            mc_h, mc_s = h["world"][:, 2:37], s["world"][:, 2:37]
+            c0 = float(np.abs(mc_h[:, 0] - mc_s[:, 0]).mean())
+            mc = float(np.abs(mc_h - mc_s).mean())
+            cm = gates.codeap_full_metrics(h["world"][:, 37:],
+                                           s["world"][:, 37:])
+            same = (d["f0"] > 0) == (h["f0"] > 0)
+            mc_f = float(np.abs(d["world"][same, 2:37]
+                                - h["world"][same, 2:37]).mean())
+            failed = gates.gate_failures(cm)
+            check(c0 < gates.MCEP_C0_MAX and mc < gates.MCEP_MEAN_MAX
+                  and mc_f < gates.MCEP_MEAN_MAX and not failed,
+                  f"{utt}: device features {c0} {mc} {mc_f} {failed}")
+            phase("recipe", f"{utt} ({len(h['f0'])} frames): h5 schema "
+                            f"equal ({len(schema)} datasets); fused device "
+                            f"F0 against the host: {line}; fused mcep mean "
+                            f"|d| {mc_f:.2e} on frames of equal voicing; "
+                            f"staged (host F0): mcep c0 mean |d| {c0:.2e}, "
+                            f"mean |d| {mc:.2e}, codeap median "
+                            f"{cm['codeap_median_db']:.2e} dB, "
+                            f"{cm['codeap_n_over']} beyond "
+                            f"{gates.CODEAP_MAX_DB} dB")
+        phase("time", f"feature_extract of {len(paths)} utterances "
+                      f"({audio_s:g} s of audio): host backends, 2 spawned "
+                      f"workers, {host_s * 1e3 / audio_s:.3f} ms per second "
+                      f"of audio (wall, spawning included); device backends "
+                      f"(fused, depth 2, after a warm-up pass) "
+                      f"{dev_s * 1e3 / audio_s:.3f} ms/s; peak device memory "
+                      f"{ext_mib:.1f} MiB{io} | {card}")
+
+        # stats: the streaming scaler against one float64 batch
+        feats_scp = os.path.join(tmp, "feats.scp")
+        with open(feats_scp, "w") as f:
+            f.write("\n".join(feats) + "\n")
+        stats = os.path.join(tmp, "stats.h5")
+        calc_stats.main(["--features", feats_scp, "--stats", stats,
+                         "--verbose", "0"])
+        allf = np.concatenate([read_hdf5(p, "/world") for p in feats]
+                              ).astype(np.float64)
+        want_m, want_s = allf.mean(0), allf.std(0)
+        want_m[0], want_s[0] = 0.0, 1.0
+        want_s[want_s == 0.0] = 1.0
+        got_m = read_hdf5(stats, "/world/mean")
+        got_s = read_hdf5(stats, "/world/scale")
+        dm = float(np.abs(got_m - want_m).max() / np.abs(want_m).max())
+        ds = float(np.abs(got_s - want_s).max() / np.abs(want_s).max())
+        check(dm <= 1e-12 and ds <= 1e-12, f"stats {dm} {ds}")
+        phase("recipe", f"calc_stats over {allf.shape[0]} frames: mean and "
+                        f"scale against one float64 batch, max |d| / max "
+                        f"|ref| {dm:.2e} and {ds:.2e} (max 1e-12)")
+
+        # shaping: the files equal emphasize of their wavs; the first 0.25 s
+        # through the C++ core and the plain per-sample loop
+        _, ns_s = _timed(lambda: noise_shaping.main(
+            ["--waveforms", lst, "--stats", stats, "--n_jobs", "1"]
+            + common))
+        coefs = emphasis_coefs(stats, "world", 2, 37, 0.5, invert=True)
+        for p in paths:
+            x = wavfile.read(p)[1].astype(np.float64)
+            want = np.clip(emphasize(x, FS, coefs, 0.455, 5.0), -32768,
+                           32767).astype(np.int16)
+            got = wavfile.read(p.replace("wav", "wav_h5_ns").replace(
+                ".wav_h5_ns", ".wav"))[1]
+            check(np.array_equal(got, want), f"{p}: shaped file")
+        x = wavfile.read(paths[0])[1][: int(0.25 * FS)].astype(np.float64)
+        b = mc2b(np.tile(coefs, (frame_count(len(x), FS, 5.0), 1)), 0.455)
+        hop = int(FS * 5.0 / 1000)
+        y_core = mlsa.mlsa_filter(x, b, 0.455, hop)
+        y_plain, _ = mlsa.mlsa_filter_plain(x, b, 0.455, hop)
+        d_core = float(np.abs(y_core - y_plain).max() / np.abs(y_plain).max())
+        check(d_core <= 1e-12, f"MLSA core against the plain loop {d_core}")
+        phase("recipe", f"noise_shaping: {len(paths)} files equal emphasize "
+                        f"of their wavs; MLSA of {len(x)} samples, C++ core "
+                        f"against the plain loop max |d| / max |ref| "
+                        f"{d_core:.2e} (max 1e-12, before int16 rounding)")
+        phase("time", f"noise_shaping {ns_s * 1e3 / audio_s:.3f} ms per "
+                      f"second of audio (one worker, CLI wall{io}) | {card}")
+
+        # the restore pass on the card: one utterance queued without a sync;
+        # pulse times, the ap = 0 waveform, MCD on the JAX test's inputs
+        f0 = read_hdf5(feats[0], "/f0")
+        w = read_hdf5(feats[0], "/world").astype(np.float64)
+        syn = WorldSynthesizer(fs=FS, backend="jax", device=dev)
+        syn.synthesis_fetch(syn.restore_async(f0, w[:, 2:37], w[:, 37:],
+                                              0.455))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handle = syn.restore_async(f0, w[:, 2:37], w[:, 37:], 0.455)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        y_dev = syn.synthesis_fetch(handle)
+        check(np.isfinite(y_dev).all() and y_dev.std() > 1.0,
+              "device restore output")
+        ta = np.arange(len(f0)) * 0.005
+        n = int(len(f0) * 0.005 * FS)
+        idx_h, sh_h, v_h = _pulse_times(f0, ta, FS, n)
+        idx_d, sh_d, v_d = DX.pulse_times_debug(f0, FS, 5.0, device=dev)
+        # a pulse's time is its index plus its fractional shift: where the
+        # phase lands on a whole cycle, one side may take the next index
+        # with a shift of 0 for the other's shift of one sample
+        same_n = len(idx_h) == len(idx_d)
+        dt = (float(np.abs(idx_h + sh_h * FS - idx_d - sh_d * FS).max())
+              if same_n else float("inf"))
+        check(same_n and dt < 1e-6 and np.array_equal(v_h, v_d),
+              f"device pulse times must equal the host's: {len(idx_h)} "
+              f"and {len(idx_d)} pulses, max |dt| {dt} samples")
+        # ap = 0 on the voiced (continuous) F0: deterministic throughout
+        sp = mc2sp(w[:, 2:37], 0.455, 1024)
+        ap0 = np.full_like(sp, 1e-6)
+        pm = gates.periodic_metrics(
+            synthesize(w[:, 1], sp, ap0, FS),
+            DX.device_synthesize(w[:, 1], sp, ap0, 0, FS, device=dev).cpu())
+        rf = gates.restore_features(120, FS)
+        fix = os.path.join(tmp, "fix")
+        outs = {}
+        for backend in ("numpy", "jax"):
+            root = os.path.join(fix, backend)
+            os.makedirs(os.path.join(root, "wav"))
+            wavfile.write(os.path.join(root, "wav", "u1.wav"), FS,
+                          np.zeros(int(120 * 0.005 * FS), np.int16))
+            for k, v in rf.items():
+                write_hdf5(os.path.join(root, "h5", "u1.h5"), k, v)
+            feature_extract.main(["--waveforms", os.path.join(root, "wav"),
+                                  "--inv", "false", "--dsp_backend", backend,
+                                  "--device", dv] + common)
+            outs[backend] = wavfile.read(os.path.join(
+                root, "h5_restored", "u1.wav"))[1].astype(np.float64)
+        kw = dict(minf0=60, maxf0=400)
+        floor = gates.restore_floor(rf["/world"], rf["/f0"], FS, **kw)
+        mm = wav_metrics(outs["numpy"], outs["jax"], FS, **kw)
+        failed = gates.gate_failures(pm)
+        check(not failed and mm["mcd_db"] <= floor["mcd_db"]
+              + gates.RESTORE_MCD_MARGIN_DB
+              and mm["f0_rmse_hz"] < gates.RESTORE_F0_RMSE_HZ,
+              f"restore gates {failed} {mm} {floor}")
+        phase("recipe", f"restore on the card: {ids[0]} queued with no "
+                        f"sync; pulse times equal to the host's "
+                        f"({len(idx_h)} pulses, voicing equal, times within "
+                        f"{dt:.1e} sample (max 1e-6), "
+                        f"{int((idx_h != idx_d).sum())} on a whole cycle "
+                        f"indexed one sample later); "
+                        f"ap = 0 waveform against the host: correlation "
+                        f"{pm['syn_corr']:.6f} (min "
+                        f"{gates.PERIODIC_CORR_MIN}), rms |d| / rms "
+                        f"{pm['syn_rel_rms']:.2e} (max "
+                        f"{gates.PERIODIC_RMS_MAX}); the JAX test's restore "
+                        f"inputs through the CLI: MCD {mm['mcd_db']:.4f} dB "
+                        f"(max floor {floor['mcd_db']:.4f} + "
+                        f"{gates.RESTORE_MCD_MARGIN_DB}), F0 RMSE "
+                        f"{mm['f0_rmse_hz']:.4f} Hz (max "
+                        f"{gates.RESTORE_F0_RMSE_HZ})")
+        rest = {}
+        for backend in ("numpy", "jax"):
+            root = os.path.join(tmp, f"rest_{backend}")
+            shutil.copytree(os.path.join(host_root, "wav"),
+                            os.path.join(root, "wav"))
+            shutil.copytree(os.path.join(host_root, "h5"),
+                            os.path.join(root, "h5"))
+            _, rest[backend] = _timed(lambda: feature_extract.main(
+                ["--waveforms", os.path.join(root, "wav"), "--inv", "false",
+                 "--dsp_backend", backend, "--n_jobs", "1", "--device",
+                 dv] + common))
+        m = wav_metrics(*(wavfile.read(os.path.join(
+            tmp, f"rest_{b}", "h5_restored", f"{ids[0]}.wav"))[1]
+            .astype(np.float64) for b in ("numpy", "jax")), FS)
+        check(m["f0_rmse_hz"] < gates.RESTORE_F0_RMSE_HZ,
+              f"corpus restore F0 {m}")
+        synth_ms = median_ms(lambda: syn.synthesis_fetch(syn.restore_async(
+            f0, w[:, 2:37], w[:, 37:], 0.455)))
+        sp_full = mc2sp(w[:, 2:37], 0.455, 1024)
+        ap_full = decode_aperiodicity(w[:, 37:], FS, 1024)
+        _, host_syn_s = _timed(lambda: synthesize(f0, sp_full, ap_full, FS))
+        secs0 = NS_SECONDS[0]
+        phase("time", f"restore pass of {audio_s:g} s: host "
+                      f"{rest['numpy'] * 1e3 / audio_s:.3f} ms per second of "
+                      f"audio, device {rest['jax'] * 1e3 / audio_s:.3f} "
+                      f"ms/s (CLI walls; corpus F0 RMSE device against host "
+                      f"{m['f0_rmse_hz']:.4f} Hz); synthesis of {ids[0]} "
+                      f"alone: host {host_syn_s * 1e3 / secs0:.3f} ms/s, "
+                      f"device restore {synth_ms[0] / secs0:.3f} "
+                      f"({synth_ms[1] / secs0:.3f}-{synth_ms[2] / secs0:.3f})"
+                      f" ms/s (median of 5, CUDA events){io} | {card}")
+
+        # decode the extracted features through K1, then noise_restored
+        cfg = ModelConfig()
+        up = cfg.upsampling_factor
+        conf = os.path.join(tmp, "exp", "model.conf")
+        run_cfg = RunConfig(model=cfg, fs=FS)
+        run_cfg.save(conf)
+        params = init_params(0, cfg, device=dev)
+        ckpt = save_final(os.path.join(tmp, "exp"), params)
+        gen = os.path.join(tmp, "gen", "feat_id.wav")
+        dec_argv = ["--feats", feats_scp, "--stats", stats, "--config", conf,
+                    "--outdir", gen, "--checkpoint", ckpt, "--batch_size",
+                    "4", "--fs", str(FS), "--device", dv, "--verbose", "0"]
+        # K1 at the decode's shape: its one batch as decode_batches builds it
+        (_, _, h_dec, _, d_dec), = qpnet_decode.decode_batches(
+            feats, run_cfg, qpnet_decode.get_arguments(dec_argv),
+            load_scaler(stats))
+        dec_err, dec_maxd = path_shape_check(
+            K, params, cfg, h_dec, d_dec[:, ::up], NS_K1_FRAMES, rng, dev,
+            "recipe k1")
+        del params      # the decode loads its own, and its peak is its own
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_count()
+        _, dec_s = _timed(lambda: qpnet_decode.main(dec_argv))
+        recipe_launches = K.launch_count
+        check(recipe_launches > 0, "qpnet_decode must launch K1")
+        dec_mib = peak_mib(dev)
+        res = os.path.join(tmp, "res", "feat_id.wav")
+        noise_restored.main(
+            ["--feats", feats_scp, "--stats", stats, "--outdir", gen,
+             "--writedir", res, "--fs", str(FS), "--mcep_dim_end", "37",
+             "--mcep_alpha", "0.455", "--n_jobs", "1", "--verbose", "0"])
+        coefs_r = emphasis_coefs(stats, "world", 2, 37, 0.5, invert=False)
+        for i, utt in enumerate(ids):
+            g = wavfile.read(gen.replace("feat_id", utt))[1]
+            r = wavfile.read(res.replace("feat_id", utt))[1]
+            n_want = len(read_hdf5(feats[i], "/f0")) * up - 1
+            want = np.clip(emphasize(g.astype(np.float64), FS, coefs_r,
+                                     0.455, 5.0), -32768, 32767
+                           ).astype(np.int16)
+            check(g.shape == (n_want,) and int(g.max()) > int(g.min())
+                  and np.array_equal(r, want),
+                  f"{utt}: decoded {g.shape} (want {n_want}) or restored")
+        phase("recipe", f"qpnet_decode of the {len(ids)} extracted feature "
+                        f"files at B=4 (default net, random weights seed 0, "
+                        f"sampling; K1 at its shape, maxd {dec_maxd}: max "
+                        f"|dlogit| to the f64 twin {dec_err:.3e}): K1 "
+                        f"launches {recipe_launches}, "
+                        f"{dec_s:.3f} s, peak device memory {dec_mib:.1f} "
+                        f"MiB; noise_restored: each file equal to emphasize "
+                        f"of the decoded wav | {card}")
+
+        # serving with --noise_shaping: the factory and frontend of the
+        # serve CLI's own code, 3 TCP streams of NS_FRAMES frames
+        argv = ["--config", conf, "--stats", stats, "--checkpoint", ckpt,
+                "--fs", str(FS), "--noise_shaping", "--mcep_dim_end", "37",
+                "--mcep_alpha", "0.455"]
+        args = qpnet_serve.get_arguments(argv)
+        factory = qpnet_serve.make_postfilter_factory(args, "world")
+        frontend = qpnet_serve.make_frontend(load_scaler(stats), args, cfg)
+        raw = [read_hdf5(p, "/world")[:NS_FRAMES].astype(np.float32)
+               for p in feats[:NS_STREAMS]]
+        hd = [frontend(r) for r in raw]
+        maxd = bucket_maxd(float(max(d.max() for _, d in hd)))
+        params = init_params(0, cfg, device=dev)
+        B = 1 << (NS_STREAMS - 1).bit_length()
+        # the session's inputs, idle rows as the direct session below has
+        h = np.zeros((B, NS_FRAMES, cfg.n_aux), np.float32)
+        d = np.ones((B, NS_FRAMES), np.float32)
+        for i, (hi, di) in enumerate(hd):
+            h[i], d[i] = hi, di
+        ns_err, ns_maxd = path_shape_check(K, params, cfg, h, d, NS_K1_FRAMES,
+                                           rng, dev, "serve_ns k1")
+        check(ns_maxd == maxd, f"serving check's maxd {ns_maxd} != {maxd}")
+
+        def serve(mode, post, **gather):
+            K.reset_launch_count()
+            svc = S.StreamingService(
+                params, cfg, max_streams=NS_STREAMS, maxd=maxd, mode=mode,
+                min_chunk_samples=NS_CHUNK, first_chunk_samples=1100,
+                frontend=frontend, devices=[dev],
+                postfilter_factory=factory if post else None, **gather)
+            svc.prewarm([NS_STREAMS])
+            srv = S.serve_tcp(svc, port=0)
+            results, errors = [None] * NS_STREAMS, []
+
+            def client(i):
+                try:
+                    t0 = time.perf_counter()
+                    first, chunks = None, []
+                    for c in S.request_stream(srv.server_address, raw[i]):
+                        if first is None:
+                            first = time.perf_counter() - t0
+                        chunks.append(c)
+                    results[i] = (np.concatenate(chunks), first,
+                                  time.perf_counter() - t0)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"stream {i}: {e!r}")
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(NS_STREAMS)]
+            try:
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                svc.close()
+            check(not errors and all(not t.is_alive() for t in threads),
+                  f"{mode} streams: {errors}")
+            return results, dict(svc.stats), K.launch_count
+
+        torch.cuda.reset_peak_memory_stats()
+        res_a, st, serve_launches = serve("argmax", True,
+                                          gather_window_s=60.0,
+                                          gather_quiet_s=30.0)
+        check(st["groups"] == 1, f"the streams must form one group: {st}")
+        direct = StreamingGenerator(params, cfg, B, maxd=maxd, mode="argmax",
+                                    device=dev).feed(h, d)
+        equal = 0
+        for i, (got, _, _) in enumerate(res_a):
+            want = np.clip(emphasize(decode_mu_law(
+                direct[i, :NS_FRAMES * up], cfg.n_quantize), FS, coefs_r,
+                0.455, 5.0) * 32768, -32768, 32767).astype(np.int16)
+            equal += int(got.dtype == np.int16 and np.array_equal(got, want))
+        check(equal == NS_STREAMS, "served --noise_shaping PCM must equal a "
+                                   "direct session through emphasize")
+        line = []
+        for post in (True, False):
+            res_s, st, n = serve("sampling", post, gather_window_s=0.25)
+            if post:
+                serve_launches += n
+            for pcm, _, _ in res_s:
+                check(pcm.shape == (NS_FRAMES * up,)
+                      and int(pcm.max()) > int(pcm.min()),
+                      "sampled streams must be non-constant PCM")
+            ttfa = [r[1] for r in res_s]
+            rtf = [NS_FRAMES * up / FS / r[2] for r in res_s]
+            line.append(f"{'with' if post else 'without'} the filter: "
+                        f"time to first audio median "
+                        f"{float(np.median(ttfa)):.4f} s "
+                        f"{[round(t, 4) for t in ttfa]}, realtime factor "
+                        f"median {float(np.median(rtf)):.4f}")
+        check(serve_launches > 0, "the --noise_shaping path must launch K1")
+        phase("serve", f"--noise_shaping, default net bf16, {NS_STREAMS} "
+                       f"TCP streams of {NS_FRAMES} frames (session B={B}, "
+                       f"maxd {maxd}; K1 at its shape: max |dlogit| to the "
+                       f"f64 twin {ns_err:.3e}): argmax PCM equal to a direct "
+                       f"StreamingGenerator through one-shot emphasize "
+                       f"{equal}/{NS_STREAMS}; sampling " + "; ".join(line)
+                       + f"; K1 launches {serve_launches}; peak device "
+                       f"memory {peak_mib(dev):.1f} MiB | {card}")
+
+        # the filter's host time per chunk beside K1's for the same chunk
+        filt = factory()
+        chunk = decode_mu_law(direct[0, :NS_CHUNK], cfg.n_quantize)
+        emph = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            filt.process(chunk)
+            emph.append((time.perf_counter() - t0) * 1e3)
+        frames = NS_CHUNK // up
+        sess = StreamingGenerator(params, cfg, B, maxd=maxd, mode="argmax",
+                                  device=dev)
+        sess.feed(h[:, :frames], d[:, :frames])
+        k1 = median_ms(lambda: sess.feed(h[:, :frames], d[:, :frames]))
+        phase("time", f"StreamingEmphasizer.process of a {NS_CHUNK}-sample "
+                      f"chunk (handler thread, host): median "
+                      f"{float(np.median(emph)):.3f} ms ({min(emph):.3f}-"
+                      f"{max(emph):.3f}, 11 chunks); K1's feed of the same "
+                      f"chunk at B={B}: {k1[0]:.3f} ({k1[1]:.3f}-{k1[2]:.3f})"
+                      f" ms | {card}")
+        del params, sess, direct
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if stand_in:
+            del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
+    phase("recipe", f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return recipe_launches, serve_launches
 
 
 if __name__ == "__main__":

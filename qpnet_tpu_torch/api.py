@@ -49,7 +49,7 @@ class Vocoder:
         self.params, self.cfg = params_to(params, self.device), cfg
         # no stats: identity scaling, so callers pass features that are
         # already standardized (the training-domain contract)
-        self.scaler = scaler if scaler is not None else Scaler(
+        self.scaler = scaler if scaler is not None else Scaler.from_stats(
             np.zeros(cfg.n_aux), np.ones(cfg.n_aux))
         self.fs = fs
         self.f0_dim_index = f0_dim_index

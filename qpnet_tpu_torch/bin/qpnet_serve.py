@@ -26,11 +26,6 @@ from qpnet_tpu_torch.data.stats import load_scaler
 from qpnet_tpu_torch.ops import dilated_factor
 from qpnet_tpu_torch.utils import set_loglevel
 
-_ROADMAP_DSP = ("--noise_shaping (the streaming noise-restoration filter: "
-                "dsp/emphasis.py and MLSA) is not ported yet: ROADMAP.md, "
-                "Queue 1 items 5 and 7")
-
-
 def get_arguments(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", required=True, type=str)
@@ -73,7 +68,9 @@ def get_arguments(argv=None):
                              "Rd10Rr3Ed4Er1 network this way)")
     parser.add_argument("--noise_shaping", default=False,
                         action="store_true",
-                        help="not ported yet (raises NotImplementedError)")
+                        help="apply the recipe's noise-restoration filter "
+                             "(the corpus-mean MLSA filter of "
+                             "noise_restored) to each stream as it plays")
     parser.add_argument("--mcep_dim_start", default=2, type=int)
     parser.add_argument("--mcep_dim_end", default=27, type=int)
     parser.add_argument("--mcep_alpha", default=0.41, type=float)
@@ -112,6 +109,23 @@ def make_frontend(scaler, args, cfg):
     return frontend
 
 
+def make_postfilter_factory(args, feature_type: str):
+    """With --noise_shaping: a factory of per-stream StreamingEmphasizers
+    over the stats file's mean mel-cepstrum (noise_restored's direction,
+    un-flipped signs); else None."""
+    if not args.noise_shaping:
+        return None
+    from qpnet_tpu_torch.dsp.emphasis import (StreamingEmphasizer,
+                                              emphasis_coefs)
+    coefs = emphasis_coefs(args.stats, feature_type, args.mcep_dim_start,
+                           args.mcep_dim_end, args.mag, invert=False)
+    logging.info("noise restoration filter enabled (mcep[%d:%d], mag %.2f, "
+                 "alpha %.3f)", args.mcep_dim_start, args.mcep_dim_end,
+                 args.mag, args.mcep_alpha)
+    return lambda: StreamingEmphasizer(args.fs, coefs, args.mcep_alpha,
+                                       shiftms=args.shiftms)
+
+
 def serve_devices(device: str, n_devices: int) -> list:
     """The devices groups are spread over: cuda:0..n-1, or the CPU."""
     if device == "cpu":
@@ -126,8 +140,6 @@ def serve_devices(device: str, n_devices: int) -> list:
 def main(argv=None):
     args = get_arguments(argv)
     set_loglevel(args.verbose)
-    if args.noise_shaping:
-        raise NotImplementedError(_ROADMAP_DSP)
     if args.interpret:
         args.device = "cpu"
     for key, value in vars(args).items():
@@ -153,7 +165,9 @@ def main(argv=None):
         min_chunk_samples=args.chunk_samples,
         first_chunk_samples=args.first_chunk_samples,
         quantize=args.quantize, frontend=make_frontend(scaler, args, cfg),
-        devices=devices, max_pending=args.max_pending)
+        devices=devices, max_pending=args.max_pending,
+        postfilter_factory=make_postfilter_factory(args,
+                                                   run_cfg.feature_type))
     if args.prewarm:
         buckets = [int(b) for b in args.prewarm.split(",")]
         logging.info("prewarming session buckets %s ...", buckets)

@@ -1,17 +1,20 @@
-"""High-level WORLD analysis API, the port of `qpnet_tpu/dsp/world/api.py`
-(the synthesis half waits for the synthesis slice).
+"""High-level WORLD analysis and synthesis API, the port of
+`qpnet_tpu/dsp/world/api.py`.
 
 WorldAnalyzer.analyze(x) -> (f0, spc, ap)    [F0, cheaptrick, d4c]
            .mcep(dim, alpha)                 [sp2mc of the envelope]
            .codeap()                         [band aperiodicity, dB]
            .npow()                           [normalized frame power, dB]
            .extract_all(x, dim, alpha)       [all of it on the device]
+WorldSynthesizer.synthesis(f0, mcep, ap, alpha)   [mc2sp -> synthesize]
+                .restore_async(f0, mcep, codeap)  [all of it on the device]
+                .synthesis_diff(x, diffmcep, alpha) [MLSA filtering]
 
 The backend values are the JAX package's, so callers of the two packages
 are interchangeable: "numpy" is the float64 host path, bit-equal to the
 JAX package's; "jax" means "on the torch device" here — float32 PyTorch on
 `device` (CUDA unless the caller asks for the CPU), the port of the JAX
-device modules (device_f0.py, device_analysis.py).
+device modules (device_f0.py, device_analysis.py, device_synthesis.py).
 """
 
 from __future__ import annotations
@@ -21,13 +24,15 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from qpnet_tpu_torch.dsp.mcep import sp2mc, spectrogram2npow
+from qpnet_tpu_torch.dsp.mcep import mc2sp, sp2mc, spectrogram2npow
+from qpnet_tpu_torch.dsp.mlsa import synthesis_diff as _mlsa_synthesis_diff
 from qpnet_tpu_torch.dsp.world.cheaptrick import cheaptrick
 from qpnet_tpu_torch.dsp.world.codec import code_aperiodicity
 from qpnet_tpu_torch.dsp.world.d4c import d4c
 from qpnet_tpu_torch.dsp.world.dio import dio
 from qpnet_tpu_torch.dsp.world.harvest import harvest
 from qpnet_tpu_torch.dsp.world.stonemask import stonemask
+from qpnet_tpu_torch.dsp.world.synthesis import synthesize
 
 
 def _bucket_pad_signal(x: np.ndarray, fs: int) -> Tuple[np.ndarray, int]:
@@ -40,6 +45,17 @@ def _bucket_pad_signal(x: np.ndarray, fs: int) -> Tuple[np.ndarray, int]:
     x32 = np.zeros(secs * fs, np.float32)
     x32[:n] = x
     return x32, n
+
+
+def _upload(x: np.ndarray, device, dtype=np.float32) -> torch.Tensor:
+    """x as `dtype` on `device`, copied without waiting for the device
+    (pinned host memory) when that is a CUDA device."""
+    from qpnet_tpu_torch.models.qpnet import resolve_device
+    dev = resolve_device(device)
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 class WorldAnalyzer:
@@ -67,15 +83,8 @@ class WorldAnalyzer:
         self._ap = None
         self._time_axis = None
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        """x as float32 on the analyzer's device, copied without waiting for
-        the device (pinned host memory) when that is a CUDA device."""
-        from qpnet_tpu_torch.models.qpnet import resolve_device
-        dev = resolve_device(self.device)
-        t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-        if dev.type == "cuda":
-            return t.pin_memory().to(dev, non_blocking=True)
-        return t.to(dev)
+    def _upload(self, x: np.ndarray, dtype=np.float32) -> torch.Tensor:
+        return _upload(x, self.device, dtype)
 
     def _frames(self, n: int) -> int:
         return int(n / (self.fs * self.shiftms / 1000.0)) + 1
@@ -230,3 +239,98 @@ class WorldAnalyzer:
     def npow(self) -> np.ndarray:
         self._require()
         return spectrogram2npow(self._spc)
+
+
+class WorldSynthesizer:
+    """backend: "numpy" = the float64 host pulse loop (reference-parity
+    default); "jax" = the batched device synthesis (device_synthesis.py)
+    on `device`, float32, the same construction with the noise drawn from
+    a seeded `torch.Generator`."""
+
+    def __init__(self, fs: int = 22050, fftl: int = 1024,
+                 shiftms: float = 5.0, backend: str = "numpy",
+                 device="cuda"):
+        self.fs = fs
+        self.fftl = fftl
+        self.shiftms = shiftms
+        self.backend = backend
+        self.device = device            # resolved when a device pass runs
+
+    def synthesis(self, f0: np.ndarray, mcep: np.ndarray, ap: np.ndarray,
+                  alpha: float = 0.455) -> np.ndarray:
+        """mcep-domain envelope + full-band aperiodicity -> waveform
+        (sprocket Synthesizer.synthesis: mc2sp then WORLD synthesis).
+        Units follow the analyzed signal's units (the reference analyzes
+        int16-scale floats and writes the synthesis output as int16
+        directly, feature_extract.py:267-272)."""
+        if self.backend == "jax":
+            return self.synthesis_fetch(
+                self.synthesis_async(f0, mcep, ap, alpha=alpha))
+        sp = mc2sp(mcep, alpha, self.fftl)
+        return synthesize(f0, sp, ap, self.fs, frame_period=self.shiftms)
+
+    def _bucket(self, f0: np.ndarray, *rows: np.ndarray):
+        """Pad the frame axis to a whole-second bucket by repeating the
+        last row (the interpolation clamps keep the pulse track over the
+        true frames unchanged), so the output is deterministic per (seed,
+        bucket); and the pulse-slot ceiling: 800 Hz covers speech, doubled
+        until it covers the track.  Returns (f0 float64, rows float32,
+        n_true, ceil) on the device."""
+        F = len(f0)
+        n_true = int(F * self.shiftms / 1000.0 * self.fs)
+        frames_per_sec = int(round(1000.0 / self.shiftms))
+        pad = max(1, -(-F // frames_per_sec)) * frames_per_sec - F
+        ceil = 800.0
+        fmax = float(f0.max(initial=0.0))
+        while fmax > ceil:
+            ceil *= 2.0
+        f0d = _upload(np.concatenate([f0, np.repeat(f0[-1:], pad)]),
+                      self.device, np.float64)
+        rows = [_upload(np.concatenate([r, np.repeat(r[-1:], pad, 0)]),
+                        self.device) for r in rows]
+        return f0d, rows, n_true, ceil
+
+    def synthesis_async(self, f0: np.ndarray, mcep: np.ndarray,
+                        ap: np.ndarray, alpha: float = 0.455,
+                        seed: int = 0):
+        """Queue one utterance's device synthesis without waiting for it:
+        returns a handle for synthesis_fetch, so a worker can queue
+        utterance k+1 while the device still renders k.  mc2sp runs on the
+        host in float64."""
+        from qpnet_tpu_torch.dsp.world.device_synthesis import (
+            device_synthesize)
+        f0 = np.asarray(f0, np.float64)
+        sp = mc2sp(mcep, alpha, self.fftl)
+        ap = np.atleast_2d(np.asarray(ap, np.float64))
+        f0d, (spd, apd), n_true, ceil = self._bucket(f0, sp, ap)
+        out = device_synthesize(f0d, spd, apd, seed, self.fs,
+                                frame_period=float(self.shiftms),
+                                f0_ceil=ceil)
+        return out, n_true
+
+    def synthesis_fetch(self, handle) -> np.ndarray:
+        """Wait for a synthesis_async or restore_async handle: float64
+        waveform."""
+        out, n_true = handle
+        return out[:n_true].cpu().numpy().astype(np.float64)
+
+    def restore_async(self, f0: np.ndarray, mcep: np.ndarray,
+                      codeap: np.ndarray, alpha: float = 0.455,
+                      seed: int = 0):
+        """The fused device restore: mel-cepstrum + coded aperiodicity ->
+        waveform in one pass (device_synthesis.device_restore), so the
+        upload is the coded features, not full spectra.  Same bucketing
+        and fetch as synthesis_async."""
+        from qpnet_tpu_torch.dsp.world.device_synthesis import device_restore
+        f0 = np.asarray(f0, np.float64)
+        mcep = np.atleast_2d(np.asarray(mcep, np.float64))
+        codeap = np.atleast_2d(np.asarray(codeap, np.float64))
+        f0d, (mcd, cad), n_true, ceil = self._bucket(f0, mcep, codeap)
+        out = device_restore(f0d, mcd, cad, float(alpha), seed, self.fs,
+                             fftl=self.fftl,
+                             frame_period=float(self.shiftms), f0_ceil=ceil)
+        return out, n_true
+
+    def synthesis_diff(self, x: np.ndarray, diffmcep: np.ndarray,
+                       alpha: float = 0.455) -> np.ndarray:
+        return _mlsa_synthesis_diff(x, diffmcep, alpha, self.shiftms, self.fs)

@@ -2,8 +2,10 @@
 device-vs-host gate inputs, with those tests' gates
 (tests/test_jax_analysis.py: CheapTrick :28-49, D4C :76-105, the analyzer
 :108-134), and the full-size synthetic utterance with the codeap gates held
-on it.  One place for the signals and the gates, which the CPU tests and
-chip_smoke.py's phase 15 both hold the device backend to.
+on it; and the synthesis gates (tests/test_jax_synthesis.py: the periodic
+waveform :67-80, the restore pass by MCD :128-186).  One place for the
+signals and the gates, which the CPU tests and chip_smoke.py's phases 15
+and 16 both hold the device backend to.
 
     m = gate_metrics("cuda", d4c_fs=22050)
     assert not gate_failures(m), gate_failures(m)
@@ -24,6 +26,13 @@ CODEAP_MAX_DB = 0.1                      # codeap max |d| in dB, :134
 # median and to the share of values beyond CODEAP_MAX_DB.
 CODEAP_MEDIAN_DB = 0.01
 CODEAP_OVER_MAX = 0.01
+# synthesis: the deterministic (ap ~ 0) waveform, device against host,
+# :78-80; the restore pass's MCD at most the host's own seed-to-seed floor
+# plus RESTORE_MCD_MARGIN_DB, its F0 RMSE below RESTORE_F0_RMSE_HZ, :184-186
+PERIODIC_CORR_MIN = 0.999
+PERIODIC_RMS_MAX = 5e-3                  # rms |d| / rms of the host
+RESTORE_MCD_MARGIN_DB = 0.1
+RESTORE_F0_RMSE_HZ = 1.0
 
 
 def db(a, scale: float = 10.0) -> np.ndarray:
@@ -163,6 +172,67 @@ def gate_failures(m: dict) -> list:
              "an_mcep_mean": lambda v: v < MCEP_MEAN_MAX,
              "an_codeap_max_db": lambda v: v < CODEAP_MAX_DB,
              "codeap_median_db": lambda v: v <= CODEAP_MEDIAN_DB,
-             "codeap_over": lambda v: v < CODEAP_OVER_MAX}
+             "codeap_over": lambda v: v < CODEAP_OVER_MAX,
+             "syn_corr": lambda v: v > PERIODIC_CORR_MIN,
+             "syn_rel_rms": lambda v: v < PERIODIC_RMS_MAX}
     return [f"{k}={m[k]}" for k, ok in gates.items()
             if k in m and not ok(m[k])]
+
+
+def synthesis_fixture(F: int, fs: int = 22050, shiftms: float = 5.0,
+                      voiced_gap: bool = True, half: int = 513):
+    """tests/test_jax_synthesis.py's synthesis inputs: (f0, sp), a 150 Hz
+    F0 with 3 Hz vibrato (unvoiced over frames F/3 to F/2 with
+    voiced_gap) and a smooth two-formant power envelope that drifts over
+    the frames (int16-scale power)."""
+    t = np.arange(F) * shiftms / 1000.0
+    f0 = 150.0 * (1 + 0.08 * np.sin(2 * np.pi * 3.0 * t))
+    if voiced_gap:
+        f0[F // 3: F // 2] = 0.0
+    freqs = np.linspace(0, fs / 2, half)
+    base = (1e6 / (1 + ((freqs - 800) / 600) ** 2)
+            + 3e5 / (1 + ((freqs - 2400) / 400) ** 2) + 10.0)
+    drift = 1.0 + 0.3 * np.sin(np.linspace(0, 3.0, F))
+    return f0, base[None, :] * drift[:, None]
+
+
+def restore_features(F: int, fs: int = 22050, dim: int = 34,
+                     alpha: float = 0.455) -> dict:
+    """The feature sets of tests/test_jax_synthesis.py:146-158 (the restore
+    worker's gate): the fixture's voiced F0 and envelope as /world (uv,
+    F0, mcep, codeap of ap = 1e-6) and /f0."""
+    from qpnet_tpu_torch.dsp.mcep import sp2mc
+    from qpnet_tpu_torch.dsp.world.codec import code_aperiodicity
+    f0, sp = synthesis_fixture(F, fs, voiced_gap=False)
+    mcep = sp2mc(sp, dim, alpha)
+    codeap = code_aperiodicity(np.full_like(sp, 1e-6), fs)
+    world = np.concatenate([(f0 > 0).astype(np.float64)[:, None],
+                            f0[:, None], mcep, codeap], axis=1)
+    return {"/world": world.astype(np.float32), "/f0": f0}
+
+
+def restore_floor(world: np.ndarray, f0: np.ndarray, fs: int,
+                  fftl: int = 1024, alpha: float = 0.455, dim: int = 34,
+                  **kw) -> dict:
+    """The restore gate's floor: wav_metrics of the host synthesis against
+    itself at seeds 1 and 2, from the restore pass's inputs."""
+    from qpnet_tpu_torch.dsp.mcep import mc2sp
+    from qpnet_tpu_torch.dsp.world.codec import decode_aperiodicity
+    from qpnet_tpu_torch.dsp.world.synthesis import synthesize
+    from qpnet_tpu_torch.tools.evaluate import wav_metrics
+    sp = mc2sp(np.asarray(world[:, 2: 3 + dim], np.float64), alpha, fftl)
+    ap = decode_aperiodicity(np.asarray(world[:, 3 + dim:], np.float64), fs,
+                             fftl)
+    ya, yb = (synthesize(f0, sp, ap, fs, seed=s) for s in (1, 2))
+    return wav_metrics(ya, yb, fs, dim, alpha, **kw)
+
+
+def periodic_metrics(y_host, y_dev) -> dict:
+    """The deterministic synthesis, device against host: correlation and
+    rms |d| over the host's rms."""
+    y_host, y_dev = np.asarray(y_host, np.float64), np.asarray(y_dev,
+                                                               np.float64)
+    rms = np.sqrt(np.mean(y_host ** 2))
+    return {"syn_corr": float(np.corrcoef(y_host, y_dev)[0, 1]),
+            "syn_rel_rms": float(np.sqrt(np.mean((y_host - y_dev) ** 2))
+                                 / rms)}

@@ -99,7 +99,11 @@ class StreamingService:
     over, each with its own scheduler thread and sessions (default: the
     first CUDA device; a CPU device runs the kernel's plain twin).
     max_pending: submit() raises once this many requests are queued (None:
-    unbounded).
+    unbounded).  postfilter_factory: returns a per-stream stateful filter
+    with a `.process(float_wav_chunk)` method, which the TCP handler applies
+    after mu-law decoding and before the int16 PCM (e.g.
+    dsp.emphasis.StreamingEmphasizer, the recipe's noise-restoration
+    filter, applied while streaming).
     """
 
     def __init__(self, params, cfg: ModelConfig, max_streams: int = 64,
@@ -111,10 +115,12 @@ class StreamingService:
                  frontend: Optional[Callable[
                      [np.ndarray], Tuple[np.ndarray, np.ndarray]]] = None,
                  devices: Optional[List] = None,
-                 max_pending: Optional[int] = None):
+                 max_pending: Optional[int] = None,
+                 postfilter_factory: Optional[Callable[[], object]] = None):
         check_streaming_quantize(quantize)
         self.params, self.cfg = params, cfg
         self.frontend = frontend
+        self.postfilter_factory = postfilter_factory
         self.quantize = quantize
         self.max_streams = max_streams
         self.maxd, self.mode, self.seed = maxd, mode, seed
@@ -422,9 +428,13 @@ class _Handler(socketserver.StreamRequestHandler):
             except OSError:
                 pass                                 # client already gone
             return
+        postfilter = (svc.postfilter_factory()
+                      if svc.postfilter_factory else None)
         try:
             for chunk in handle.chunks():
                 wav = decode_mu_law(chunk, cfg.n_quantize)
+                if postfilter is not None:           # e.g. noise restoration
+                    wav = postfilter.process(wav)
                 pcm = np.clip(wav * 32768, -32768, 32767).astype("<i2")
                 self.wfile.write(struct.pack("<I", len(pcm)) + pcm.tobytes())
             self.wfile.write(struct.pack("<I", 0))

@@ -1,1 +1,2 @@
-"""Tools of the port: reference-checkpoint conversion and the serving soak."""
+"""Tools of the port: reference-checkpoint conversion, the serving soak and
+objective evaluation."""

@@ -185,7 +185,7 @@ def test_stream_reuses_its_session_and_equals_the_generator(expdir):
 
 def test_load_by_iteration_and_scaler_object(expdir):
     tmp, cfg, _, feats = expdir
-    sc = Scaler(np.zeros(cfg.n_aux), np.ones(cfg.n_aux))
+    sc = Scaler.from_stats(np.zeros(cfg.n_aux), np.ones(cfg.n_aux))
     voc = Vocoder.load(str(tmp), checkpoint=7, stats=sc, mode="argmax",
                        device="cpu")
     assert voc.synthesize(feats[:4]).shape == (4 * cfg.upsampling_factor - 1,)
@@ -201,7 +201,8 @@ def test_feats_shape_validated(expdir):
 
 
 def test_what_is_not_ported_raises(expdir):
-    """`qpnet_serve --noise_shaping` waits for the emphasis filter; the scan
+    """`qpnet_serve --noise_shaping` builds the restoration filter over the
+    experiment's stats (one-shot `emphasize` bit for bit); the scan
     engine's combinations load and synthesize what batch_fast_generate
     gives, while int8_weights cannot stream (the kernel has no weight-only
     scheme)."""
@@ -212,12 +213,19 @@ def test_what_is_not_ported_raises(expdir):
     tmp, cfg, _, feats = expdir
     x0 = np.full((1, 1), int(encode_mu_law(np.zeros(1), cfg.n_quantize)[0]),
                  np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qpnet_serve.main([
-            "--config", str(tmp / "model.conf"),
-            "--stats", str(tmp / "stats.h5"),
-            "--checkpoint", str(tmp / "checkpoint-final.pkl"),
-            "--device", "cpu", "--noise_shaping"])
+    from qpnet_tpu_torch.dsp.emphasis import emphasis_coefs, emphasize
+    args = qpnet_serve.get_arguments([
+        "--config", str(tmp / "model.conf"),
+        "--stats", str(tmp / "stats.h5"),
+        "--checkpoint", str(tmp / "checkpoint-final.pkl"),
+        "--device", "cpu", "--noise_shaping"])
+    filt = qpnet_serve.make_postfilter_factory(args, "world")()
+    wav = np.random.default_rng(5).normal(size=900) * 0.1
+    coefs = emphasis_coefs(args.stats, "world", args.mcep_dim_start,
+                           args.mcep_dim_end, args.mag, invert=False)
+    np.testing.assert_array_equal(
+        np.concatenate([filt.process(wav[:300]), filt.process(wav[300:])]),
+        emphasize(wav, args.fs, coefs, args.mcep_alpha, args.shiftms))
     for kw in ({"engine": "xla"}, {"quantize": "int8_weights"}):
         v = load(tmp, mode="argmax", **kw)
         h, d = v.conditioning(feats)

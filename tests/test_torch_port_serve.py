@@ -425,8 +425,8 @@ def test_jax_client_against_port_server(model):
 
     _, _, cfg, pt = model
     rng = np.random.default_rng(9)
-    scaler = Scaler(rng.normal(size=cfg.n_aux),
-                    rng.uniform(0.5, 2.0, cfg.n_aux))
+    scaler = Scaler.from_stats(rng.normal(size=cfg.n_aux),
+                               rng.uniform(0.5, 2.0, cfg.n_aux))
 
     class A:  # the argparse surface make_frontend reads
         f0_dim_index, f0_factor, fs = 1, 1.0, 1000
@@ -544,7 +544,7 @@ def test_qpnet_serve_cli_round_trip(model, tmp_path):
                 raise
             time.sleep(0.2)
     args = qpnet_serve.get_arguments(argv)
-    unit = Scaler(np.zeros(cfg.n_aux), np.ones(cfg.n_aux))
+    unit = Scaler.from_stats(np.zeros(cfg.n_aux), np.ones(cfg.n_aux))
     svc = make_service(cfg, pt, frontend=qpnet_serve.make_frontend(
         unit, args, cfg))
     try:
@@ -552,5 +552,11 @@ def test_qpnet_serve_cli_round_trip(model, tmp_path):
     finally:
         svc.close()
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qpnet_serve.main(argv + ["--noise_shaping"])
+    # --noise_shaping is served (tests/test_torch_port_feature_cli.py):
+    # the CLI builds one restoration filter per stream, none without it
+    from qpnet_tpu_torch.dsp.emphasis import StreamingEmphasizer
+    assert qpnet_serve.make_postfilter_factory(args, "world") is None
+    factory = qpnet_serve.make_postfilter_factory(
+        qpnet_serve.get_arguments(argv + ["--noise_shaping"]), "world")
+    a, b = factory(), factory()
+    assert isinstance(a, StreamingEmphasizer) and a is not b

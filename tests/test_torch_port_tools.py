@@ -308,3 +308,41 @@ def test_nvcc_version_is_read_once(monkeypatch):
     assert _build.nvcc_version("/x/nvcc") == "release 12.8\n"
     assert _build.nvcc_version("/x/nvcc") == "release 12.8\n"
     assert calls == [["/x/nvcc", "--version"]]
+
+
+def test_host_build_key_and_the_unchanged_cuda_key(monkeypatch, tmp_path):
+    """The host DSP core's library is keyed on its source, the host flags
+    and `<compiler> --version` (a stubbed compiler), in the kernels' build
+    directory; the CUDA key is the one of earlier builds (its digest for a
+    fixed source and nvcc version is pinned here)."""
+    versions = {"c++": "c++ (Debian 12.2.0-14) 12.2.0\n"}
+    monkeypatch.setattr(_build, "find_cxx", lambda: "c++")
+    monkeypatch.setattr(_build, "cxx_version", lambda cxx: versions[cxx])
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "nvcc_version", lambda nvcc: (
+        "Cuda compilation tools, release 12.8, V12.8.93\n"))
+    monkeypatch.setenv("QPNET_KERNEL_CACHE", str(tmp_path / "kc"))
+    src = (_build.CSRC / "qpdsp.cpp").read_bytes()
+    key = _build.host_library_path("qpdsp", src)
+    assert key.parent == tmp_path / "kc" and key.name.startswith("libqpdsp-")
+    assert _build.host_library_path("qpdsp", src) == key
+    assert _build.host_library_path("qpdsp", src + b"\n") != key
+    versions["c++"] = "c++ (Debian 13.1.0-1) 13.1.0\n"
+    assert _build.host_library_path("qpdsp", src) != key
+    cu = b"__global__ void k() {}\n"
+    assert _build.library_path("k", cu).name == "libk-a00f123af859c0ee.so"
+    assert "-ffp-contract=off" in _build.HOST_CXX_FLAGS
+    assert not any("march" in f for f in _build.HOST_CXX_FLAGS)
+
+
+def test_host_core_builds_once_with_the_host_compiler(monkeypatch, tmp_path):
+    """csrc/qpdsp.cpp builds with the host compiler here (no nvcc) into
+    QPNET_KERNEL_CACHE, and a second build finds the library."""
+    monkeypatch.setenv("QPNET_KERNEL_CACHE", str(tmp_path / "kc"))
+    first = _build.build_host("qpdsp")
+    assert first.exists() and first.parent == tmp_path / "kc"
+    mtime = first.stat().st_mtime_ns
+    assert _build.build_host("qpdsp") == first
+    assert first.stat().st_mtime_ns == mtime
+    import ctypes
+    assert ctypes.CDLL(str(first)).qpdsp_mlsa_state_size(24, 4) == 200
