@@ -133,7 +133,27 @@ Phases, each reported on its own line; any failure exits non-zero:
      Where h5py is missing (the card's machine has none), the phase's h5
      files go through a stand-in for `h5py.File` (pickled arrays), and its
      CLI walls say so.
-Each main path (phases 4, 7, 10, 12-16) also prints its peak device memory.
+ 17. the synthetic recipe (qpnet_tpu_torch/recipes/run_synth.sh's stages
+     c f t a d s e, in process, with the argv the script gives and the
+     device analysis; runFE with 2 host worker processes, runQP's
+     restoration inline): `make_synth_corpus` (1
+     speaker, 22,050 Hz, 6 + 8 + 4 training and 4 evaluation utterances,
+     --seconds 1.5, seed 0), `runFE -1` on the training list (histograms),
+     `runFE -2` of both lists on the card, `-3`, `-4`; `runQP -1` (SI, 100
+     iterations, bf16, the default network at full width, the plain engine:
+     K2 not launched), `-2` (SD, 100 iterations), `-5` (the sweep prints
+     best iteration 100); K1 against its twins in forced mode at the
+     decode's shape (B=4, the extracted features' maxd bucket, random
+     weights, on phase 3's f64 gate); `-r -3 -4` of the SD model at
+     that iteration, `-m -r -3 -4` of the SI model and `-m -r -F 1.5 -3 -4`,
+     each launching K1; the experiment directories, checkpoints,
+     model.conf, loss and validation records, and every wav under
+     noiseshaped/ and restored/ with F*up - 1 samples; finite losses;
+     `evaluate` of the restored wavs against the source wavs (printed, not
+     gated: 100 iterations set no quality bar); each stage's wall and peak
+     device memory.  K1's launches go into `launches_by_path["run_synth"]`.
+     Its h5 files go through phase 16's stand-in where h5py is missing.
+Each main path (phases 4, 7, 10, 12-17) also prints its peak device memory.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
@@ -432,6 +452,8 @@ def main() -> int:
     kernels[0]["launches_by_path"]["vocode"] = analysis_smoke(dev, card)
     (kernels[0]["launches_by_path"]["recipe"],
      kernels[0]["launches_by_path"]["serve_ns"]) = recipe_smoke(dev, card)
+    kernels[0]["launches_by_path"]["run_synth"] = synth_recipe_smoke(dev,
+                                                                     card)
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -1340,7 +1362,7 @@ def tools_smoke(cfg, dev, card):
     from qpnet_tpu_torch.tools import convert_checkpoint as C
     from qpnet_tpu_torch.train import step as TS
     from qpnet_tpu_torch.train.checkpoint import load_checkpoint
-    from qpnet_tpu_torch.train.trainer import read_validation_record
+    from qpnet_tpu_torch.utils.yamlconf import read_validation_record
     torch.cuda.reset_peak_memory_stats()
     params = init_params(0, cfg, device=dev)
     utts, scaler = memory_corpus(cfg, seed=13)
@@ -2214,6 +2236,246 @@ def recipe_smoke(dev, card):
             del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
     phase("recipe", f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
     return recipe_launches, serve_launches
+
+
+# --- phase 17: the synthetic recipe on the card -----------------------------
+
+SR_SPK = "SYN1"
+SR_SECONDS = "1.5"     # make_synth_corpus --seconds (its default is 3.0)
+SR_ITERS = "100"       # SI iterations (the recipe's 200,000)
+SR_UITERS = "100"      # SD iterations (the recipe's 3,000)
+SR_F0FACTOR = "1.5"
+# host worker processes (the defaults: 20 and 25): runFE spawns 2 (the
+# histograms' analysis, the shaping), runQP's restoration runs inline
+SR_FE_JOBS, SR_QP_JOBS = ["--n_jobs", "2"], ["--n_jobs", "1"]
+
+
+def synth_recipe_smoke(dev, card):
+    """Phase 17: run_synth.sh's stages c f t a d s e in process, with the
+    argv the port's script gives (device analysis), runFE -1 first, on the
+    default network at full width; returns K1's launches on its decodes."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+    from scipy.io import wavfile
+
+    from qpnet_tpu_torch import runFE, runQP
+    from qpnet_tpu_torch.bin import qpnet_decode
+    from qpnet_tpu_torch.config import RunConfig
+    from qpnet_tpu_torch.data import load_scaler, read_hdf5, read_txt
+    from qpnet_tpu_torch.models.qpnet import init_params
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    from qpnet_tpu_torch.ops import train_kernel as TK
+    from qpnet_tpu_torch.tools import evaluate, make_synth_corpus
+    from qpnet_tpu_torch.utils.yamlconf import (read_loss_record,
+                                                read_validation_record)
+    t_phase = time.perf_counter()
+    # the recipe renames "wav" anywhere in a path, so the project has none
+    for _ in range(5):
+        prj = tempfile.mkdtemp(prefix="qp17_")
+        if "wav" not in prj:
+            break
+        os.rmdir(prj)
+    check("wav" not in prj, f"project dir {prj} must not contain 'wav'")
+    dv, spk = dev.type, SR_SPK
+    stand_in = _install_h5_stand_in()
+    io_note = ""
+    if stand_in:
+        os.environ[H5_STAND_IN_ENV] = "1"
+        io_note = " (h5 files through the h5py stand-in: pickle, not HDF5)"
+    prev_prj = os.environ.get("QPNET_PRJ_DIR")
+    os.environ["QPNET_PRJ_DIR"] = prj      # as run_synth.sh exports it
+    corpus = os.path.join(prj, "corpus", "SYNTH")
+    fe = ["--device", dv, "-f", str(FS), "--corpus", "SYNTH",
+          "--dsp_backend", "jax", "--f0_backend", "jax"] + SR_FE_JOBS
+    qp = ["--device", dv, "-w", "synthtr.scp", "-a", "synthtr.scp", "-f",
+          str(FS), "-d", "8", "--corpus", "SYNTH", "--dtype",
+          "bfloat16"] + SR_QP_JOBS
+    sd = ["-x", f"synthup_{spk}.scp", "-u", f"synthup_{spk}.scp"]
+    model = "Asynthtr_Wsynthtr_d8"
+    sd_model = f"{model}_Usynthup_{spk}_Vsynthup_{spk}"
+    walls, peaks, launches = {}, {}, {}
+
+    def stage(name, fn, exits=False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            fn()
+            check(not exits, f"{name} must end with sys.exit(0)")
+        except SystemExit as e:       # runFE -1 ends so
+            check(exits and e.code == 0, f"{name} exited with {e.code}")
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        peaks[name] = peak_mib(dev)
+
+    def decode(name, argv):
+        K.reset_launch_count()
+        stage(name, lambda: runQP.main(qp + argv))
+        launches[name] = K.launch_count
+        check(launches[name] > 0, f"{name}: the decode must launch K1")
+
+    try:
+        # c: the corpus; runFE -1 (histograms, conf); f: features, stats,
+        # noise shaping
+        stage("c corpus", lambda: make_synth_corpus.main(
+            ["--corpus_dir", corpus, "--fs", str(FS), "--speakers", "1",
+             "--train_utts", "6", "--seconds", SR_SECONDS, "--seed", "0"]))
+        audio = {k: sum(len(wavfile.read(os.path.join(corpus, ln[9:]))[1])
+                        for ln in read_txt(os.path.join(corpus, "scp",
+                                                        f"{k}.scp"))) / FS
+                 for k in ("synthtr", "syntheval")}
+        stage("runFE -1", lambda: runFE.main(
+            fe + ["-e", f"synthtr_{spk}.scp", "-1", spk]), exits=True)
+        for set_ in ("synthtr", "syntheval"):
+            stage(f"runFE -2 {set_}", lambda set_=set_: runFE.main(
+                fe + ["-r", "-i", "-e", f"{set_}_{spk}.scp", "-2", spk]))
+        stage("runFE -3", lambda: runFE.main(
+            fe + ["-r", "-e", "synthtr.scp", "-3", "allspk"]))
+        stage("runFE -4", lambda: runFE.main(
+            fe + ["-r", "-e", "synthtr.scp", "-4", "allspk"]))
+        for png in ("f0", "npow"):
+            check(os.path.getsize(os.path.join(
+                corpus, "hist", f"{spk}_{png}histogram.png")) > 0,
+                f"runFE -1: the {png} histogram")
+
+        # t: SI training on the plain engine (runQP passes no
+        # --fixed_engine, so auto resolves to it: K2 is not launched)
+        TK.reset_launch_counts()
+        stage("runQP -1", lambda: runQP.main(qp + ["-I", SR_ITERS, "-1"]))
+        check(TK.fwd_launch_count == TK.bwd_launch_count == 0,
+              "runQP's training must take the plain engine")
+        # a: SD adaptation, the sweep, K1 at the decode's shape, the SD
+        # decode at the sweep's best iteration
+        stage("runQP -2", lambda: runQP.main(qp + sd + ["-U", SR_UITERS,
+                                                        "-2"]))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            stage("runQP -5", lambda: runQP.main(
+                qp + sd + ["-y", f"synthva_{spk}.scp", "-v",
+                           f"synthva_{spk}.scp", "-U", SR_UITERS, "-5"]))
+        print(out.getvalue(), end="", flush=True)
+        models = os.path.join(prj, "qpnet_models")
+        res = read_validation_record(os.path.join(models, sd_model,
+                                                  "validation_result.yml"))
+        best = min(res, key=res.get).split("-")[-1].split(".")[0]
+        check(best == SR_UITERS and f"best iteration: {best} (loss "
+              in out.getvalue(), f"best iteration {best}: {out.getvalue()}")
+        check(sorted(res) == [f"checkpoint-{SR_UITERS}.pkl"]
+              and all(np.isfinite(v) for v in res.values()),
+              f"validation_result.yml {res}")
+
+        feats = sorted(os.path.join(corpus, ln[9:]).replace(
+            "wav", "h5") for ln in read_txt(os.path.join(
+                corpus, "scp", f"syntheval_{spk}.scp")))
+        stats = os.path.join(corpus, "stats", "synthtr_stats.h5")
+        conf = os.path.join(models, sd_model, "model.conf")
+        run_cfg = RunConfig.load(conf)
+        cfg = run_cfg.model
+        args = qpnet_decode.get_arguments(
+            ["--feats", "-", "--stats", stats, "--config", conf, "--outdir",
+             "-", "--checkpoint", "-", "--fs", str(FS), "--batch_size",
+             str(runQP.DECODE_BATCH_SIZE)])
+        (_, _, h_dec, _, d_dec), = qpnet_decode.decode_batches(
+            feats, run_cfg, args, load_scaler(stats))
+        # random weights (seed 0), as the gate's other checks have them
+        params = init_params(0, cfg, device=dev)
+        k1_err, k1_maxd = path_shape_check(
+            K, params, cfg, h_dec, d_dec[:, ::cfg.upsampling_factor],
+            NS_K1_FRAMES, np.random.default_rng(17), dev, "run_synth k1")
+        del params
+        ev = ["-e", f"syntheval_{spk}.scp"]
+        decode("a SD decode", ["-r"] + sd + ev + ["-M", best, "-3", "-4",
+                                                  spk])
+        # d, s: the SI model, then its F0-scaled decode
+        decode("d SI decode", ["-m", "-r"] + ev + ["-M", "final", "-3", "-4",
+                                                   spk])
+        decode("s F0 x1.5", ["-m", "-r"] + ev + ["-M", "final", "-F",
+                                                 SR_F0FACTOR, "-3", "-4",
+                                                 spk])
+
+        # the layout the CPU tests fix, and finite losses
+        want = {model: {"checkpoint-final.pkl", "model.conf",
+                        "loss-final.yml"},
+                sd_model: {f"checkpoint-{SR_UITERS}.pkl",
+                           "checkpoint-final.pkl", "model.conf",
+                           "loss-final.yml", "validation_result.yml"}}
+        losses = {}
+        for m, names in want.items():
+            have = set(os.listdir(os.path.join(models, m)))
+            check(names <= have, f"{m}: {sorted(names - have)} missing")
+            losses[m] = read_loss_record(os.path.join(models, m,
+                                                      "loss-final.yml"))
+            check(len(losses[m]) > 0 and np.isfinite(losses[m]).all(),
+                  f"{m}: losses {losses[m]}")
+        up = cfg.upsampling_factor
+        n_wavs = 0
+        for m, it, suffixes in ((sd_model, best, ("",)),
+                                (model, "final", ("", f"_{SR_F0FACTOR}"))):
+            for mode in ("noiseshaped", "restored"):
+                d = os.path.join(prj, "qpnet_output", m, mode, spk, it)
+                for f in feats:
+                    utt = os.path.splitext(os.path.basename(f))[0]
+                    for sfx in suffixes:
+                        x = wavfile.read(os.path.join(d,
+                                                      f"{utt}{sfx}.wav"))[1]
+                        n_want = read_hdf5(f, "/world").shape[0] * up - 1
+                        check(x.dtype == np.int16 and x.shape == (n_want,)
+                              and int(x.max()) > int(x.min()),
+                              f"{d}/{utt}{sfx}.wav: {x.dtype} {x.shape}, "
+                              f"want {n_want} samples")
+                        n_wavs += 1
+
+        # e: the restored wavs against the source wavs
+        src = os.path.join(corpus, "wav", "synth_evaluation", spk)
+        scores = {}
+        for name, m, it in (("SI", model, "final"), ("SD", sd_model, best)):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                stage(f"e evaluate {name}", lambda m=m, it=it: evaluate.main(
+                    ["--ref_wavs", src, "--gen_wavs", os.path.join(
+                        prj, "qpnet_output", m, "restored", spk, it)]))
+            scores[name] = json.loads(out.getvalue().strip().splitlines()[-1])
+            check(scores[name]["n_utterances"] == len(feats),
+                  f"evaluate {name}: {scores[name]}")
+    finally:
+        shutil.rmtree(prj, ignore_errors=True)
+        if prev_prj is None:
+            os.environ.pop("QPNET_PRJ_DIR", None)
+        else:
+            os.environ["QPNET_PRJ_DIR"] = prev_prj
+        if stand_in:
+            del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
+
+    n_k1 = sum(launches.values())
+    phase("run_synth", f"corpus {audio['synthtr']:.3f} s of training and "
+                       f"{audio['syntheval']:.3f} s of evaluation audio "
+                       f"(1 speaker, seed 0); SI {SR_ITERS} and SD "
+                       f"{SR_UITERS} iterations, default net (R="
+                       f"{cfg.n_resch}, S={cfg.n_skipch}, "
+                       f"{len(cfg.dilationsF) + len(cfg.dilationsA)} "
+                       f"layers), bf16, plain engine (K2 launched 0 times); "
+                       f"best iteration {best}; losses finite (SI "
+                       f"last {losses[model][-1]:.4f}, SD last "
+                       f"{losses[sd_model][-1]:.4f}, validation "
+                       f"{res['checkpoint-' + best + '.pkl']:.4f}); K1 at "
+                       f"the decode's shape (B={h_dec.shape[0]}, maxd "
+                       f"{k1_maxd}): max |dlogit| to the f64 twin "
+                       f"{k1_err:.3e}; K1 launches by decode {launches}; "
+                       f"{n_wavs} wavs of F*up - 1 samples in the recipe's "
+                       f"layout")
+    for name, sc in scores.items():
+        phase("run_synth", f"evaluate {name} restored against the source "
+                           f"wavs: {json.dumps(sc)}")
+    phase("time", "run_synth stages, wall s (peak device MiB): " + ", ".join(
+        f"{k} {walls[k]:.3f} ({peaks[k]:.1f})" for k in walls)
+        + f"; SI training {walls['runQP -1'] * 1e3 / int(SR_ITERS):.3f} ms "
+        f"per iteration (CLI wall over {SR_ITERS} iterations, start-up and "
+        f"h5 reads included){io_note} | {card}")
+    phase("run_synth", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return n_k1
 
 
 if __name__ == "__main__":

@@ -62,8 +62,8 @@ def validation_loss(params, cfg: ModelConfig, batches: Iterable[dict],
 def record_result(resultdir: str, name: str, loss: float) -> str:
     """Add {name: loss} to resultdir/validation_result.yml; returns its
     path."""
-    from qpnet_tpu_torch.train.trainer import (read_validation_record,
-                                               write_validation_record)
+    from qpnet_tpu_torch.utils.yamlconf import (read_validation_record,
+                                                write_validation_record)
     os.makedirs(resultdir, exist_ok=True)
     path = os.path.join(resultdir, RESULT_FILE)
     results = read_validation_record(path) if os.path.exists(path) else {}

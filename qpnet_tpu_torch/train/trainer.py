@@ -15,12 +15,11 @@ ported: ROADMAP.md, Queue 1 item 8.
 from __future__ import annotations
 
 import logging
-import math
 import os
 import re
 import signal
 import time
-from typing import Dict, Iterator, List, Mapping, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +37,7 @@ from qpnet_tpu_torch.train.step import (MULTI_DEVICE, TrainState,
                                         batch_to_device, load_optimizer_state,
                                         make_optimizer, make_train_step,
                                         optimizer_state, resolve_fixed_engine)
+from qpnet_tpu_torch.utils.yamlconf import read_loss_record, write_loss_record
 
 
 class PreemptionGuard:
@@ -81,82 +81,6 @@ class PreemptionGuard:
         if self._after is not None and self._steps >= self._after:
             return True
         return self.signum is not None
-
-
-# --- loss-final.yml: a YAML list of floats, written as PyYAML's safe_dump
-# writes it, so both packages (and yaml.safe_load) read it back equal -------
-
-def _yaml_float(v: float) -> str:
-    if v != v:
-        return ".nan"
-    if math.isinf(v):
-        return ".inf" if v > 0 else "-.inf"
-    text = repr(float(v)).lower()
-    if "." not in text and "e" in text:
-        text = text.replace("e", ".0e", 1)
-    return text
-
-
-def _parse_yaml_float(text: str) -> float:
-    special = {".nan": math.nan, ".inf": math.inf, "-.inf": -math.inf}
-    text = text.strip().lower()
-    return special[text] if text in special else float(text)
-
-
-def write_loss_record(path: str, losses: Sequence[float]) -> None:
-    text = "".join(f"- {_yaml_float(v)}\n" for v in losses) or "[]\n"
-    with open(path, "w", encoding="utf-8") as f:
-        f.write(text)
-
-
-def read_loss_record(path: str) -> List[float]:
-    with open(path, encoding="utf-8") as f:
-        lines = [ln.strip() for ln in f if ln.strip()]
-    if lines in ([], ["[]"]):
-        return []
-    return [_parse_yaml_float(ln[1:]) for ln in lines]   # "- <float>"
-
-
-# --- validation_result.yml: a YAML mapping {checkpoint name: mean loss},
-# keys sorted as PyYAML's safe_dump sorts them; the port quotes its keys,
-# and reads the plain, single- and double-quoted keys that both CLIs write
-
-def write_validation_record(path: str, results: Mapping[str, float]) -> None:
-    text = "".join("'%s': %s\n" % (k.replace("'", "''"), _yaml_float(v))
-                   for k, v in sorted(results.items())) or "{}\n"
-    with open(path, "w", encoding="utf-8") as f:
-        f.write(text)
-
-
-def _mapping_entry(line: str):
-    """(key, value text) of one `key: value` line of a YAML mapping."""
-    if line[0] == "'":
-        j = 1
-        while True:
-            j = line.index("'", j)
-            if line[j + 1:j + 2] != "'":
-                return line[1:j].replace("''", "'"), line[j + 2:]
-            j += 2
-    if line[0] == '"':
-        j = 1
-        while True:
-            j = line.index('"', j)
-            if line[j - 1] != "\\":
-                return (line[1:j].encode("ascii", "backslashreplace")
-                        .decode("unicode_escape"), line[j + 2:])
-            j += 1
-    key, value = line.rsplit(": ", 1)
-    return key, value
-
-
-def read_validation_record(path: str) -> Dict[str, float]:
-    out = {}
-    with open(path, encoding="utf-8") as f:
-        for line in f:
-            if line.strip() and line.strip() != "{}":
-                key, value = _mapping_entry(line.rstrip("\n"))
-                out[key] = _parse_yaml_float(value)
-    return out
 
 
 def _newest_checkpoint(expdir: str) -> Optional[str]:

@@ -26,8 +26,8 @@ from qpnet_tpu_torch.config import ModelConfig, RunConfig
 from qpnet_tpu_torch.ops import _build
 from qpnet_tpu_torch.tools import convert_checkpoint
 from qpnet_tpu_torch.train import load_checkpoint
-from qpnet_tpu_torch.train.trainer import (read_validation_record,
-                                           write_validation_record)
+from qpnet_tpu_torch.utils.yamlconf import (read_validation_record,
+                                            write_validation_record)
 from qpnet_tpu_torch.utils import profiler
 from test_convert import make_state_dict
 
