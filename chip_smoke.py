@@ -153,7 +153,32 @@ Phases, each reported on its own line; any failure exits non-zero:
      gated: 100 iterations set no quality bar); each stage's wall and peak
      device memory.  K1's launches go into `launches_by_path["run_synth"]`.
      Its h5 files go through phase 16's stand-in where h5py is missing.
-Each main path (phases 4, 7, 10, 12-17) also prints its peak device memory.
+ 18. data parallelism on the one card, two shards or ranks sharing it:
+     K1 at the shard's shape (B=10 of phase 4's batch, the frame of the
+     largest d) against its twins in forced mode on phase 3's f64 gate,
+     and at b_offset = 10 in argmax and sampling (`sample_check`) and bit
+     for bit against the same rows of one B=20 call; then the main path:
+     `batch_fast_generate(mesh=Mesh(["cuda:0"] * 2))` on phase 4's inputs
+     and seed, samples equal to phase 4's single call bit for bit in
+     sampling, and to a single call in argmax; the deep net at w8a8: K1-w8a8
+     at b_offset = 4 (B=4 of a B=8 batch) bit for bit against its twin in
+     argmax and sampling and against the same rows of one B=8 call, then
+     the batch as 2 x 4 through `batch_fast_generate`, equal to one B=8
+     call; then two `qpnet_train` processes
+     joined as two hosts (--coordinator 127.0.0.1:<free port> --n_hosts 2
+     --host_id 0/1, --device cuda --fixed_engine pallas, default net, f32,
+     global batch 2, phase 7's window, 4 iterations, a 4-utterance corpus
+     of wav and h5 files): both log the same losses, the trainer's
+     all-gathered parameter checksum is equal on both, only host 0 wrote
+     checkpoints, the log names gloo as the gradients' backend (the ranks
+     share the card), K2 launched on each; then QPNET_PREEMPT_AFTER=3 on
+     host 0 only (plain engine, a 3,300-sample window) stops both hosts
+     at iteration 4 with checkpoint-4.pkl and no checkpoint-final.pkl.
+     Walls, ms per iteration beside phase 8's one-process step, the
+     all-reduce's ms per step and peak device memory per rank.  K1's
+     launches go into `launches_by_path["dp_decode"]` (both branches), the
+     ranks' K2 launches into the K2 rows' `launches_by_path["dp_train"]`.
+Each main path (phases 4, 7, 10, 12-18) also prints its peak device memory.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
@@ -441,7 +466,7 @@ def main() -> int:
                    f"with the host C++ compiler built in "
                    f"{time.perf_counter() - t0:.2f} s")
 
-    kernels = smoke(ModelConfig(), dev, card)
+    kernels, case4 = smoke(ModelConfig(), dev, card)
     kernels += train_smoke(ModelConfig(), dev, card)
     kernels.insert(1, deep_main(dev, card))
     scan_smoke(ModelConfig(), dev, card)
@@ -454,6 +479,12 @@ def main() -> int:
      kernels[0]["launches_by_path"]["serve_ns"]) = recipe_smoke(dev, card)
     kernels[0]["launches_by_path"]["run_synth"] = synth_recipe_smoke(dev,
                                                                      card)
+    dp = dp_smoke(dev, card, case4, kernels[2]["train_step_ms"]["pallas"])
+    kernels[0]["launches_by_path"]["dp_decode"] = dp["k1"]
+    kernels[1]["launches_by_path"] = {"serve": kernels[1]["launches"],
+                                      "dp_decode": dp["w8a8"]}
+    for row, n in zip(kernels[2:], dp["k2"]):
+        row["launches_by_path"] = {"train": row["launches"], "dp_train": n}
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -528,6 +559,7 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
     launches = K.launch_count
     mem4 = peak_mib(dev)
     check(launches > 0, "the main path must launch K1")
+    case4 = dict(x=x, h=h, n_samples=n_samples, d=d, out=out, wall=wall)
     with tempfile.TemporaryDirectory() as tmp:
         for i, s in enumerate(out):
             wav = np.clip(decode_mu_law(s, cfg.n_quantize) * 32768,
@@ -573,7 +605,7 @@ def smoke(cfg, dev, card, seconds=(0.5, 1.0)):
         "tpu_kernel": "qpnet_tpu/ops/gen_kernel.py::pallas_generate",
         "launches": launches, "max_abs_err": max_err, "ms": ms,
         "ms_per_step": ms / n3, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]
+        "bound_by": bound_by, "library_ms": None}], case4
 
 
 W8A8_RMSE_MAX, W8A8_AGREE_MIN = 0.10, 0.90     # w8a8 against bf16 logits
@@ -2476,6 +2508,324 @@ def synth_recipe_smoke(dev, card):
         f"h5 reads included){io_note} | {card}")
     phase("run_synth", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
     return n_k1
+
+
+
+# --- phase 18: data parallelism on one card -------------------------------
+
+DP_SHARDS = 2
+DP_ITERS = 4
+DP_WORKER = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+import chip_smoke  # noqa: F401  (the h5py stand-in, where h5py is missing)
+import torch
+from qpnet_tpu_torch.bin import qpnet_train
+from qpnet_tpu_torch.ops import train_kernel as TK
+t0 = time.perf_counter()
+qpnet_train.main({argv!r})
+torch.cuda.synchronize()
+print("dp rank " + json.dumps({{
+    "wall": time.perf_counter() - t0, "fwd": TK.fwd_launch_count,
+    "bwd": TK.bwd_launch_count,
+    "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}}), flush=True)
+"""
+
+
+def _dp_corpus(root, cfg):
+    """4 utterances of 2-3 s as int16 wavs and h5 features (phase 7's
+    in-memory corpus, seed 18), their lists and stats."""
+    from scipy.io import wavfile
+
+    from qpnet_tpu_torch.data import calc_stats, write_hdf5
+    utts, _ = memory_corpus(cfg, seed=18, n_utts=4)
+    wavs, feats = [], []
+    for i, (fs, x, h) in enumerate(utts):
+        wavs.append(os.path.join(root, f"utt{i}.wav"))
+        feats.append(os.path.join(root, f"utt{i}.h5"))
+        wavfile.write(wavs[-1], fs,
+                      np.clip(x * 32767, -32768, 32767).astype(np.int16))
+        write_hdf5(feats[-1], "/world", h.astype(np.float32))
+    lists = []
+    for name, paths in (("wav.scp", wavs), ("feat.scp", feats)):
+        lists.append(os.path.join(root, name))
+        with open(lists[-1], "w") as f:
+            f.write("\n".join(paths) + "\n")
+    stats = os.path.join(root, "stats.h5")
+    calc_stats(feats, stats)
+    return lists[0], lists[1], stats
+
+
+def _dp_hosts(argv, env_for, timeout=300):
+    """Two `qpnet_train` processes joined as hosts 0 and 1 at a free local
+    coordinator; returns their outputs and the wall.  A process that fails
+    or outlives the timeout fails the phase; each is killed in a finally."""
+    import socket
+    import subprocess
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("QPNET_PREEMPT_AFTER", "QPNET_COORDINATOR",
+                         "QPNET_NUM_HOSTS", "QPNET_HOST_ID")}
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for hid in range(2):
+            a = argv + ["--coordinator", coord, "--n_hosts", "2",
+                        "--host_id", str(hid)]
+            a[a.index("--config") + 1] += f".{hid}"
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DP_WORKER.format(root=root, argv=a)],
+                env=dict(base, **env_for(hid)), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for hid, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"dp host {hid} exited {p.returncode}:\n{out[-3000:]}")
+    return outs, wall
+
+
+def _rank_line(out):
+    import re
+    m = re.search(r"^dp rank (\{.*\})$", out, re.M)
+    check(m is not None, "a dp rank printed no record")
+    return json.loads(m.group(1))
+
+
+def dp_smoke(dev, card, case4, step_ms):
+    """Phase 18: sharded decode through K1 and two-rank dp training through
+    K2 on the one card; returns K1's and K1-w8a8's launches on the sharded
+    decodes and the ranks' (forward, backward) K2 launches."""
+    t_phase = time.perf_counter()
+    k1, w8 = dp_decode_smoke(dev, card, case4)
+    k2 = dp_train_smoke(card, step_ms)
+    phase("dp", f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return {"k1": k1, "w8a8": w8, "k2": k2}
+
+
+def offset_check(K, params, cfg, h, d, per, dev, quantize="none"):
+    """K1 on the last rows of a batch as the sharded decode runs them:
+    primed from the whole batch (as each shard primes), B - per rows at
+    b_offset = per, over the first frame at the maxd bucket of all of d.
+    Held against its twin (`sample_check`: bit for bit in w8a8) and, in
+    sampling mode, against those rows of one call over the whole batch."""
+    import torch
+
+    from qpnet_tpu_torch.models import generate as G
+    B, up, Q = h.shape[0], cfg.upsampling_factor, cfg.n_quantize
+    maxd = G.bucket_maxd(float(np.nanmax(np.ceil(d))))
+    x_seed = torch.full((B, cfg.receptive_field(maxd) + 1), Q // 2,
+                        dtype=torch.int64, device=dev)
+    h_pad, d_fr, _ = G._pallas_host_prep(cfg, h[:, :1], d[:, :up], up, dev)
+    packed, bufF0, bufA0, x0 = G._prologue(params, cfg, x_seed, h_pad[0],
+                                           maxd, const_seed=True,
+                                           quantize=quantize)
+    kw = dict(maxd=maxd, n_steps=up, quantize=quantize)
+    whole = K.generate(packed, cfg, bufF0, bufA0, x0, h_pad[:1], d_fr[:1], 7,
+                       B=B, **kw, mode="sampling")
+    shard = (packed, cfg, bufF0[:, per:].contiguous(),
+             bufA0[:, per:].contiguous(), x0[:, per:].contiguous(),
+             h_pad[:1, per:].contiguous(), d_fr[:1, :, per:].contiguous(), 7)
+    kw.update(B=B - per, b_offset=per)
+    name = "K1-w8a8" if quantize == "w8a8" else "K1"
+    sample_check(K, shard, kw, f"dp {name}")
+    mine = K.generate(*shard, **kw, mode="sampling")
+    same = (torch.equal(mine[0], whole[0][:, :, per:])
+            and torch.equal(mine[1], whole[1][:, per:])
+            and torch.equal(mine[3], whole[3][:, per:]))
+    phase("dp", f"{name} at b_offset {per} (B={B - per}, maxd {maxd}, {up} "
+                f"steps, sampling): samples, rings and x equal to rows "
+                f"{per}-{B - 1} of one B={B} call: {same}")
+    check(same, f"{name}: a shard at its b_offset must draw the whole "
+                f"batch's rows")
+
+
+def dp_decode_smoke(dev, card, case4):
+    """Phase 18's decodes: K1 at the shard's shape, then phase 4's batch
+    and a deep w8a8 batch over two shards of the card, each bit-equal to
+    one call; returns the K1 and K1-w8a8 launches of the sharded runs."""
+    import torch
+
+    from qpnet_tpu_torch.config import ModelConfig
+    from qpnet_tpu_torch.models import generate as G
+    from qpnet_tpu_torch.models.qpnet import init_params
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    from qpnet_tpu_torch.parallel import Mesh
+    cfg = ModelConfig()
+    up = cfg.upsampling_factor
+    params = init_params(0, cfg, device=dev)
+    x, h, n_samples, d = (case4[k] for k in ("x", "h", "n_samples", "d"))
+    B = h.shape[0]
+    per = B // DP_SHARDS
+    shard_dev = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+                 else dev)
+    mesh = Mesh([shard_dev] * DP_SHARDS)
+
+    # K1 at the second shard's shape: forced on phase 3's f64 gate ...
+    rng = np.random.default_rng(18)
+    path_shape_check(K, params, cfg, h[per:], d[per:, ::up], 1, rng, dev,
+                     "dp")
+    # ... and at b_offset = per against its twin and one whole-batch call
+    offset_check(K, params, cfg, h, d, per, dev)
+
+    # the main path: phase 4's batch over two shards of the card
+    ref = {"sampling": case4["out"]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref["argmax"] = G.batch_fast_generate(params, cfg, x, h, n_samples, d,
+                                          seed=100, mode="argmax", device=dev)
+    one_wall = {"sampling": case4["wall"],
+                "argmax": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_count()
+    torch.cuda.synchronize()
+    walls = {}
+    for mode in ("sampling", "argmax"):
+        t0 = time.perf_counter()
+        out = G.batch_fast_generate(params, cfg, x, h, n_samples, d,
+                                    seed=100, mode=mode, mesh=mesh)
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - t0
+        same = len(out) == B and all(np.array_equal(a, b)
+                                     for a, b in zip(out, ref[mode]))
+        phase("dp", f"batch_fast_generate {mode}, B={B} over {mesh}: "
+                    f"samples equal to one call's bit for bit: {same}")
+        check(same, f"sharded {mode} decode must equal one call")
+    k1 = K.launch_count
+    mem_dec = peak_mib(dev)
+    check(k1 > 0, "the sharded decode must launch K1")
+    del params
+    torch.cuda.empty_cache()
+
+    # w8a8: the deep net, B=8 as 2 x 4
+    dcfg = ModelConfig.from_network_name(DEEP)
+    dparams = init_params(0, dcfg, device=dev)
+    xw, hw, nw, dw = make_inputs(rng, dcfg, sorted(
+        int(f) for f in rng.integers(10, 20, size=8)))
+    offset_check(K, dparams, dcfg, hw, dw, 8 // DP_SHARDS, dev, "w8a8")
+    one = G.batch_fast_generate(dparams, dcfg, xw, hw, nw, dw, seed=100,
+                                quantize="w8a8", device=dev)
+    K.reset_launch_count()
+    two = G.batch_fast_generate(dparams, dcfg, xw, hw, nw, dw, seed=100,
+                                quantize="w8a8", mesh=mesh)
+    w8 = K.w8a8_launch_count
+    same = all(np.array_equal(a, b) for a, b in zip(one, two))
+    phase("dp", f"{DEEP} w8a8, B=8 as {DP_SHARDS} x 4, sampling: equal to "
+                f"one B=8 call bit for bit: {same}; K1-w8a8 launches {w8}")
+    check(same and w8 > 0, "sharded w8a8 decode must equal one call")
+    del dparams
+    torch.cuda.empty_cache()
+    phase("time", f"sharded decode walls: B={B} sampling "
+                  f"{walls['sampling']:.3f} s over {DP_SHARDS} shards of one "
+                  f"card against {one_wall['sampling']:.3f} s in one call "
+                  f"(phase 4), argmax "
+                  f"{walls['argmax']:.3f} against {one_wall['argmax']:.3f} "
+                  f"(the shards queue on one card: no speed-up is claimed); "
+                  f"K1 launches {k1}; peak device memory {mem_dec:.1f} MiB "
+                  f"| {card}")
+    return k1, w8
+
+
+def dp_train_smoke(card, step_ms):
+    """Phase 18's training: two `qpnet_train` processes joined as two hosts
+    on the card, then the preemption pair; returns the ranks' (forward,
+    backward) K2 launches."""
+    import re
+    import shutil
+
+    from qpnet_tpu_torch.config import ModelConfig
+    cfg = ModelConfig()
+    tmp = tempfile.mkdtemp(prefix="qp18_")
+    stand_in = _install_h5_stand_in()
+    if stand_in:
+        os.environ[H5_STAND_IN_ENV] = "1"
+    try:
+        wav_scp, feat_scp, stats = _dp_corpus(tmp, cfg)
+        expdir = os.path.join(tmp, "exp")
+        argv = ["--waveforms", wav_scp, "--feats", feat_scp, "--stats", stats,
+                "--expdir", expdir, "--config", os.path.join(tmp, "m.conf"),
+                "--batch_length", "20000", "--max_length", "30000",
+                "--batch_size", "2", "--iters", str(DP_ITERS),
+                "--checkpoint_interval", str(DP_ITERS), "--intervals", "1",
+                "--fixed_engine", "pallas", "--dtype", "float32",
+                "--device", "cuda", "--verbose", "1"]
+        outs, wall = _dp_hosts(argv, lambda hid: {})
+        logged = [re.findall(r"average loss = ([0-9.]+) \(([0-9.]+) sec",
+                             o) for o in outs]
+        losses = [[float(v) for v, _ in lg] for lg in logged]
+        sums = [re.findall(r"parameter checksum (\S+) equal on the 2 ranks",
+                           o) for o in outs]
+        reduce_ms = [re.findall(r"all-reduces over (\w+), ([0-9.]+) ms each",
+                                o) for o in outs]
+        ranks = [_rank_line(o) for o in outs]
+        k2 = tuple(sum(r[k] for r in ranks) for k in ("fwd", "bwd"))
+        shared = all("gradient all-reduce over gloo (the ranks share a card)"
+                     in o for o in outs)
+        phase("dp", f"qpnet_train as 2 hosts on one card, kernel engine, f32, "
+                    f"global batch 2, T=30030, {DP_ITERS} iterations: losses "
+                    f"{losses[0]} and {losses[1]}; parameter checksums "
+                    f"{sums[0]} {sums[1]}; gradients over gloo (ranks share "
+                    f"the card) logged by both: {shared}; K2 launches fwd "
+                    f"{k2[0]} bwd {k2[1]}")
+        check(len(losses[0]) == DP_ITERS and losses[0] == losses[1]
+              and all(np.isfinite(losses[0])), "both ranks must log the "
+                                                "same finite losses")
+        check(len(sums[0]) == 1 and sums[0] == sums[1],
+              "the replicas' parameter checksums must agree")
+        check(shared, "the log must name gloo as the gradients' backend")
+        check(min(k2) > 0, f"every rank must launch K2, got {k2}")
+        for name in (f"checkpoint-{DP_ITERS}.pkl", "checkpoint-final.pkl"):
+            check(os.path.exists(os.path.join(expdir, name)), name)
+        check("checkpoint created" in outs[0]
+              and "checkpoint created" not in outs[1],
+              "only the lead rank writes checkpoints")
+        ms_it = ", ".join(f"{float(s) * 1e3:.0f}" for _, s in logged[0][1:])
+        phase("time", f"dp training: {wall:.3f} s for both processes "
+                      f"(start-up, corpus, build cache, 4 iterations, "
+                      f"checkpoints); ms per iteration after the first "
+                      f"(host 0's log) {ms_it} against phase 8's "
+                      f"one-process kernel-engine step "
+                      f"{step_ms:.3f} ms; gradient all-reduce "
+                      f"{reduce_ms[0][0][1]} and {reduce_ms[1][0][1]} ms per "
+                      f"step over {reduce_ms[0][0][0]} (host clock); peak "
+                      f"device memory per "
+                      f"rank {ranks[0]['peak_mib']:.1f} and "
+                      f"{ranks[1]['peak_mib']:.1f} MiB | {card}")
+
+        # preemption on host 0 only stops both at the same iteration
+        pre = os.path.join(tmp, "preempt")
+        argv = argv[:]
+        for flag, value in (("--expdir", pre), ("--batch_length", "2200"),
+                            ("--max_length", "3300"), ("--iters", "50"),
+                            ("--checkpoint_interval", "100"),
+                            ("--fixed_engine", "xla")):
+            argv[argv.index(flag) + 1] = value
+        outs, wall = _dp_hosts(argv, lambda hid: {"QPNET_PREEMPT_AFTER": "3"}
+                               if hid == 0 else {})
+        n_it = [len(re.findall(r"average loss", o)) for o in outs]
+        stopped = (os.path.exists(os.path.join(pre, "checkpoint-4.pkl"))
+                   and not os.path.exists(os.path.join(pre,
+                                                       "checkpoint-final.pkl"))
+                   and "preemption at iteration 4" in outs[0])
+        phase("dp", f"QPNET_PREEMPT_AFTER=3 on host 0 only (plain engine, "
+                    f"3,300-sample window): iterations run {n_it}, "
+                    f"checkpoint-4.pkl and no checkpoint-final.pkl: {stopped} "
+                    f"({wall:.3f} s)")
+        check(n_it == [4, 4] and stopped, "preemption must stop both hosts "
+                                          "at iteration 4")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if stand_in:
+            del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
+    return k2
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ WORLD analysis and synthesis on the host (float64, bit-equal to the JAX
 package's) and on the device (plain PyTorch), which `Vocoder.analyze`/
 `vocode` run, and the feature-pipeline workers (extraction, stats, noise
 shaping and restoration, also served per stream) over the port's host
-C++ MLSA core (ROADMAP.md lists the rest).
+C++ MLSA core, the recipe layer, and data parallelism (sharded decode, dp
+training on one host and on many; ROADMAP.md lists the rest).
 
   config.py   model, feature and training configuration
   ops/        mu-law, pitch factors, the generation kernel (K1), the fused
@@ -29,6 +30,8 @@ C++ MLSA core (ROADMAP.md lists the rest).
   data/       h5 feature files, file lists, feature statistics, the
               training window batcher
   train/      checkpoints, the train step (loss, Adam) and the trainer loop
+  parallel/   the dp mesh, the multi-host world over torch.distributed,
+              the dp dryrun
   bin/        the decode, serve, train, update and validate CLIs, and the
               feature-pipeline workers
   tools/      reference-checkpoint conversion, the serving soak

@@ -4,6 +4,11 @@ pitch-dependent dilation factors from the scaled track), generates through
 the CUDA generation kernel or the scan engine (--engine, --quantize,
 --dtype), then mu-law-decodes and writes int16 wavs into the `feat_id` path
 template.  Same argv as `qpnet_tpu.bin.qpnet_decode`, plus --device.
+--n_devices N shards each batch over the first N cards (one thread per
+card; through the kernel the output equals one card's bit for bit,
+through the scan engine on cards only to rounding), and
+--n_hosts/--host_id give each host (process) its strided slice of the
+list.
 
   python -m qpnet_tpu_torch.bin.qpnet_decode --feats <dir|list> \\
       --stats stats.h5 --config model.conf --checkpoint checkpoint-final.pkl \\
@@ -51,8 +56,8 @@ def get_arguments(argv=None):
     parser.add_argument("--n_gpus", default=1, type=int,
                         help="accepted for CLI parity")
     parser.add_argument("--n_devices", default=1, type=int,
-                        help="devices to shard the batch over; only 1 is "
-                             "ported")
+                        help="cards to shard each batch over (the first "
+                             "n_devices of --device's type)")
     parser.add_argument("--n_hosts", default=1, type=int,
                         help="multi-host fan-out: each process decodes "
                              "feat_list[host_id::n_hosts]")
@@ -135,9 +140,10 @@ def decode_batches(feat_list, run_cfg, args, scaler):
 def main(argv=None):
     args = get_arguments(argv)
     set_loglevel(args.verbose)
+    mesh = None
     if args.n_devices > 1:
-        raise NotImplementedError(
-            "multi-GPU decode is not ported yet: ROADMAP.md, Queue 1 item 8")
+        from qpnet_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(args.n_devices, args.device)
     for key, value in vars(args).items():
         logging.info("%s = %s", key, str(value))
     outdir_is_dir = "feat_id" not in os.path.basename(args.outdir)
@@ -185,6 +191,8 @@ def main(argv=None):
     ckpt = load_checkpoint(args.checkpoint)
     params = params_from_numpy(ckpt["model"], args.device)
     scaler = load_scaler(args.stats, run_cfg.feature_type)
+    if mesh is not None:
+        logging.info("decoding over a %d-device mesh", mesh.size)
 
     for feat_ids, x, h, n_samples, d in decode_batches(
             feat_list, run_cfg, args, scaler):
@@ -192,7 +200,7 @@ def main(argv=None):
         samples_list = batch_fast_generate(
             params, cfg, x, h, n_samples, d, seed=args.seed, mode=args.mode,
             compute_dtype=getattr(torch, args.dtype), engine=args.engine,
-            quantize=args.quantize, device=args.device)
+            quantize=args.quantize, device=args.device, mesh=mesh)
         for feat_id, samples in zip(feat_ids, samples_list):
             wav = decode_mu_law(samples, cfg.n_quantize)
             wav_filename = wav_path(feat_id)

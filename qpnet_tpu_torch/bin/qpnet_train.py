@@ -1,14 +1,23 @@
-"""SI-QPNet training worker on one GPU.  Same argv as
-`qpnet_tpu.bin.qpnet_train`, plus --device; writes the same `model.conf`.
+"""SI-QPNet training worker.  Same argv as `qpnet_tpu.bin.qpnet_train`,
+plus --device; writes the same `model.conf`.
 
   python -m qpnet_tpu_torch.bin.qpnet_train --waveforms <dir|list> \\
       --feats <dir|list> --stats stats.h5 --expdir exp --config exp/model.conf \\
-      --fixed_engine pallas
+      --fixed_engine pallas [--n_devices N]
 
 --fixed_engine pallas runs the residual stack through the fused training
 kernel (CUDA on the card, its plain twin with --device cpu); auto and xla
-run the plain PyTorch engine.  Multi-device and multi-host training and the
-orbax checkpoint backend are not ported (NotImplementedError).
+run the plain PyTorch engine.
+
+Data parallelism (parallel/): --n_devices N spawns N local ranks, one per
+card (cuda:0..N-1), or N CPU ranks with --device cpu.  --coordinator
+host:port --n_hosts H --host_id h (or QPNET_COORDINATOR / QPNET_NUM_HOSTS /
+QPNET_HOST_ID) joins a multi-host world with one rank per visible card of
+each host, or --n_devices CPU ranks.  --batch_size is the global batch and
+must divide over the ranks.  The launcher forwards SIGTERM to its ranks
+(each saves at the agreed iteration and exits) and fails if any rank
+fails.  --tp/--sp/--pp/--pp_microbatches and the orbax checkpoint backend
+are not ported (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -16,7 +25,10 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import shutil
+import signal
 import sys
+import tempfile
 
 from qpnet_tpu_torch.config import ModelConfig, RunConfig, TrainConfig
 from qpnet_tpu_torch.data import find_files, read_txt
@@ -59,7 +71,8 @@ def get_arguments(argv=None):
     parser.add_argument("--n_gpus", default=1, type=int,
                         help="accepted for CLI parity")
     parser.add_argument("--n_devices", default=1, type=int,
-                        help="data-parallel devices; only 1 is ported")
+                        help="data-parallel ranks on this host, one per "
+                             "card (batch_size must divide over all ranks)")
     parser.add_argument("--tp", default=1, type=int,
                         help="tensor-parallel group size; only 1 is ported")
     parser.add_argument("--sp", default=1, type=int,
@@ -72,11 +85,14 @@ def get_arguments(argv=None):
                         help="GPipe microbatches; pipeline parallelism is "
                              "not ported")
     parser.add_argument("--coordinator", default=None, type=str,
-                        help="multi-host coordinator; not ported")
+                        help="multi-host: host:port of rank 0's rendezvous "
+                             "(or env QPNET_COORDINATOR)")
     parser.add_argument("--n_hosts", default=None, type=int,
-                        help="multi-host process count; not ported")
+                        help="multi-host: number of hosts "
+                             "(or env QPNET_NUM_HOSTS)")
     parser.add_argument("--host_id", default=None, type=int,
-                        help="multi-host process id; not ported")
+                        help="multi-host: this host's id "
+                             "(or env QPNET_HOST_ID)")
     parser.add_argument("--pretrain", default=None, nargs="?", type=str,
                         help="weights-only init (the SD-update path)")
     parser.add_argument("--dtype", default="float32", type=str,
@@ -96,17 +112,31 @@ def get_arguments(argv=None):
 
 def check_ported(args) -> None:
     """Raise on argv that asks for what the port does not have yet."""
+    from qpnet_tpu_torch.parallel.mesh import PP, check_data_parallel
     from qpnet_tpu_torch.train.checkpoint import checkpoint_backend
-    from qpnet_tpu_torch.train.step import MULTI_DEVICE
-    multi = (args.n_devices > 1 or args.tp > 1 or args.sp > 1
-             or args.pp > 1 or args.pp_microbatches
-             or args.coordinator is not None
-             or (args.n_hosts is not None and args.n_hosts > 1)
-             or args.host_id is not None
-             or os.environ.get("QPNET_COORDINATOR"))
-    if multi:
-        raise NotImplementedError(MULTI_DEVICE)
+    check_data_parallel(args.tp, args.sp, args.pp)
+    if args.pp_microbatches:
+        raise NotImplementedError(PP)
     checkpoint_backend()
+
+
+def dp_layout(args):
+    """(hosts, local_ranks): hosts is (coordinator, n_hosts, host_id) or
+    None for one host.  A multi-host run takes one rank per visible card
+    (--device cuda) or --n_devices CPU ranks; one host, --n_devices ranks.
+    Raises ValueError when the cards are fewer than the ranks."""
+    from qpnet_tpu_torch.parallel.distributed import resolve_multihost
+    from qpnet_tpu_torch.parallel.mesh import make_mesh
+    hosts = resolve_multihost(args.coordinator, args.n_hosts, args.host_id)
+    local = args.n_devices
+    if args.device == "cuda" and (hosts is not None or local > 1):
+        local = make_mesh(None if hosts else local, "cuda").size
+    if (hosts[1] if hosts else 1) * local > 1 \
+            and args.batch_size % ((hosts[1] if hosts else 1) * local):
+        raise ValueError(f"batch_size {args.batch_size} must divide over "
+                         f"the dp axis ({(hosts[1] if hosts else 1) * local} "
+                         f"ranks)")
+    return hosts, local
 
 
 def build_configs(args):
@@ -147,10 +177,66 @@ def resolve_lists(args):
     return wav_list, feat_list
 
 
+def run_rank(local_rank: int, args, hosts, local_ranks: int,
+             init_method: str) -> None:
+    """One dp rank: join the world, train on its rows, leave."""
+    from qpnet_tpu_torch.parallel import distributed as PD
+    from qpnet_tpu_torch.train.trainer import run_training
+    set_loglevel(args.verbose)   # a spawned rank starts unconfigured
+    host_id, n_hosts = (hosts[2], hosts[1]) if hosts else (0, 1)
+    device = f"cuda:{local_rank}" if args.device == "cuda" else "cpu"
+    PD.init_world(init_method, host_id, n_hosts, local_rank, local_ranks,
+                  device)
+    try:
+        cfg, tcfg = build_configs(args)
+        wav_list, feat_list = resolve_lists(args)
+        run_training(cfg, tcfg, wav_list, feat_list, args.stats, args.expdir,
+                     feature_type=args.feature_type,
+                     resume=_none(args.resume), pretrain=_none(args.pretrain),
+                     mesh=PD.rank_mesh())
+    finally:
+        PD.shutdown()
+
+
+def _none(v):
+    return v if v and v != "None" else None
+
+
+def spawn_ranks(args, hosts, local_ranks: int, init_method: str) -> None:
+    """Run `local_ranks` ranks of this host in spawned processes; SIGTERM
+    is forwarded to them, and a failed rank ends the others and raises."""
+    import torch.multiprocessing as tmp
+    ctx = tmp.start_processes(run_rank, args=(args, hosts, local_ranks,
+                                              init_method),
+                              nprocs=local_ranks, join=False,
+                              start_method="spawn")
+
+    def forward(signum, frame):
+        for p in ctx.processes:
+            if p.is_alive():
+                os.kill(p.pid, signum)
+
+    try:
+        prev = signal.signal(signal.SIGTERM, forward)
+    except ValueError:   # not the main thread: nothing to forward
+        prev = None
+    try:
+        while not ctx.join(timeout=5):
+            pass
+    finally:
+        if prev is not None:
+            signal.signal(signal.SIGTERM, prev)
+        for p in ctx.processes:   # after a failure join() has ended them
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
 def main(argv=None):
     args = get_arguments(argv)
     set_loglevel(args.verbose)
     check_ported(args)
+    hosts, local_ranks = dp_layout(args)
     from qpnet_tpu_torch.models.qpnet import resolve_device
     resolve_device(args.device)   # before anything is written
     for key, value in vars(args).items():
@@ -166,13 +252,29 @@ def main(argv=None):
     wav_list, feat_list = resolve_lists(args)
     logging.info("number of training data = %d.", len(wav_list))
 
-    from qpnet_tpu_torch.train.trainer import run_training
-    resume = args.resume if args.resume and args.resume != "None" else None
-    pretrain = (args.pretrain if args.pretrain and args.pretrain != "None"
-                else None)
-    run_training(cfg, tcfg, wav_list, feat_list, args.stats, args.expdir,
-                 feature_type=args.feature_type, resume=resume,
-                 pretrain=pretrain, device=args.device)
+    if hosts is None and local_ranks == 1:
+        from qpnet_tpu_torch.train.trainer import run_training
+        run_training(cfg, tcfg, wav_list, feat_list, args.stats, args.expdir,
+                     feature_type=args.feature_type,
+                     resume=_none(args.resume), pretrain=_none(args.pretrain),
+                     device=args.device)
+        return
+    if args.device == "cuda" and args.fixed_engine == "pallas":
+        from qpnet_tpu_torch.ops import train_kernel
+        train_kernel.build()   # once here, not once per rank
+    if hosts is not None:
+        init_method, store = f"tcp://{hosts[0]}", None
+    else:
+        store = tempfile.mkdtemp(prefix="qpnet_dp_")
+        init_method = "file://" + os.path.join(store, "rendezvous")
+    try:
+        if local_ranks == 1:
+            run_rank(0, args, hosts, 1, init_method)
+        else:
+            spawn_ranks(args, hosts, local_ranks, init_method)
+    finally:
+        if store is not None:
+            shutil.rmtree(store, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@ Finished utterances keep generating into padding; callers slice
 
 from __future__ import annotations
 
+import contextlib
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence
 
 import numpy as np
@@ -139,7 +141,7 @@ def _prologue(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
               h_pad0: torch.Tensor, maxd: int, const_seed: bool,
               quantize: str = "none"):
     """Weight packing and ring priming: (packed, bufF0, bufA0, x0) in the
-    kernel's layout.  h_pad0: (B, AUX_PAD) first frame of the kernel's
+    kernel's layout.  h_pad0: (B, >= n_aux) first frame of the kernel's
     aux input."""
     packed = gen_kernel.pack_weights(params, cfg, quantize)
     return (packed, *_kernel_state(params, cfg, x_seed,
@@ -173,18 +175,33 @@ def _pallas_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
                  h: np.ndarray, d: np.ndarray, n_steps: int, maxd: int,
                  seed: int, mode: str, const_seed: bool = False,
                  device="cuda", x_forced=None,
-                 quantize: str = "none") -> np.ndarray:
+                 quantize: str = "none", rows: np.ndarray = None
+                 ) -> np.ndarray:
     """Generation through the kernel, in chunks of DECODE_CHUNK_FRAMES
     frames with carried state.  Returns (B, n_steps) int32 samples, or
-    (n_steps, B, Q) f32 logits in forced mode (x_forced: (B, n_steps))."""
-    B = h.shape[0]
+    (n_steps, B, Q) f32 logits in forced mode (x_forced: (B, n_steps)).
+
+    rows: a shard's global rows of the batch that x_seed, h and d hold
+    whole (contiguous, the last row repeated as padding).  The shard primes
+    the whole batch, as one call over it does (the priming's products may
+    round otherwise at another batch size), takes its rows' rings, and
+    keys the sampling hash off its first row's global index."""
     params = params_to(params, device)
-    h_pad, d_frames, n_pad_steps = _pallas_host_prep(cfg, h, d, n_steps,
-                                                     device)
+    h0 = torch.from_numpy(np.ascontiguousarray(h[:, 0])).to(
+        device=device, dtype=torch.bfloat16)   # the kernel's aux: bf16
     packed, bufF, bufA, x0 = _prologue(
         params, cfg, torch.as_tensor(x_seed, dtype=torch.int64,
                                      device=device),
-        h_pad[0], maxd, const_seed, quantize)
+        h0, maxd, const_seed, quantize)
+    b_offset = 0
+    if rows is not None:
+        idx = torch.as_tensor(rows, device=device)
+        bufF, bufA, x0 = (t.index_select(1, idx).contiguous()
+                          for t in (bufF, bufA, x0))
+        h, d, b_offset = h[rows], d[rows], int(rows[0])
+    B = h.shape[0]
+    h_pad, d_frames, n_pad_steps = _pallas_host_prep(cfg, h, d, n_steps,
+                                                     device)
     xf = None
     if mode == "forced":
         xf_np = np.zeros((n_pad_steps, 1, B), np.int32)
@@ -200,7 +217,7 @@ def _pallas_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
         out, bufF, bufA, x0 = gen_kernel.generate(
             packed, cfg, bufF, bufA, x0, h_pad[f0_:f1_], d_frames[f0_:f1_],
             seed, B=B, maxd=maxd, n_steps=steps, mode=mode,
-            step_offset=off, quantize=quantize,
+            step_offset=off, b_offset=b_offset, quantize=quantize,
             x_forced=None if xf is None else xf[off:off + steps])
         if mode != "forced" and cfg.n_quantize <= 256:
             out = out.to(torch.uint8)  # quarters the device-to-host copy
@@ -286,11 +303,17 @@ def _wmatmul(x: torch.Tensor, p: dict, key: str, dtype) -> torch.Tensor:
     return _matmul(x, p[key], dtype)
 
 
-def _sample(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def _sample(logits: torch.Tensor, generator: torch.Generator,
+            rows: torch.Tensor = None, n_rows: int = None) -> torch.Tensor:
     """One draw per row from softmax(logits), by the Gumbel-max trick on
-    uniforms from `generator` (on the logits' device)."""
-    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
-                   device=logits.device)
+    uniforms from `generator` (on the logits' device).  A shard (its global
+    `rows` of a batch of `n_rows`) draws the whole batch's uniforms and
+    takes its rows, so sharding leaves the stream unchanged."""
+    u = torch.rand((logits.shape[0] if rows is None else n_rows,
+                    logits.shape[1]), generator=generator,
+                   dtype=torch.float32, device=logits.device)
+    if rows is not None:
+        u = u[rows]
     g = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     return torch.argmax(logits + g, dim=-1)
 
@@ -308,7 +331,9 @@ def _generate_scan(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
                    mode: str = "sampling", compute_dtype=torch.bfloat16,
                    quantize: str = "none", const_seed: bool = False,
                    forced_x: torch.Tensor = None,
-                   generator: torch.Generator = None) -> torch.Tensor:
+                   generator: torch.Generator = None,
+                   rows: torch.Tensor = None, n_rows: int = None
+                   ) -> torch.Tensor:
     """The scan engine, one step per iteration, on the tensors' device.
 
     x_seed: (B, rf + 1) int mid-scale-padded seed history, its last element
@@ -318,7 +343,8 @@ def _generate_scan(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
     d[:, i]); forced_x: (B, n_steps) int, required iff mode="forced", the
     sample each step feeds back.  Sampling draws from `generator`.
     Returns (B, n_steps) int32 samples, or in forced mode (B, n_steps,
-    n_quantize) f32 logits.
+    n_quantize) f32 logits.  rows, n_rows: a shard's global rows and the
+    whole batch's row count, for the sampling noise (see `_sample`).
     """
     if mode not in ("sampling", "argmax", "forced"):
         raise ValueError("mode should be sampling, argmax or forced")
@@ -356,7 +382,7 @@ def _generate_scan(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
     # ring (past values only) does not hold
     h_steps = h_up[:, :n_steps].transpose(0, 1).contiguous()   # (T, B, A)
     t = rf + torch.arange(n_steps, device=dev)
-    rows = torch.arange(B, device=dev)
+    b_idx = torch.arange(B, device=dev)
     reads, current = [], []
     for dil, size in zip(cfg.dilationsA, sizesA):
         r = torch.clamp(round_look_back(d[:, :n_steps], dil), 0, size).T
@@ -380,7 +406,7 @@ def _generate_scan(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
             buf[:, ti % size] = o
             o = o + y[:, S:] + p["b_res"]
         for li, (p, buf, size) in enumerate(zip(adaptW, bufsA, sizesA)):
-            past = torch.where(current[li][i], o, buf[rows, reads[li][i]])
+            past = torch.where(current[li][i], o, buf[b_idx, reads[li][i]])
             y = _scan_layer(p, o, past, h_t, R, compute_dtype)
             skip_sum = skip_sum + y[:, :S] + p["b_skip"]
             buf[:, ti % size] = o
@@ -392,7 +418,8 @@ def _generate_scan(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
             out[i] = logits
             x_next = fx[i]
         else:
-            x_next = (_sample(logits, generator) if mode == "sampling"
+            x_next = (_sample(logits, generator, rows, n_rows)
+                      if mode == "sampling"
                       else torch.argmax(logits, dim=-1))
             out[i] = x_next
         x_prev, x_cur = x_cur, x_next
@@ -402,12 +429,21 @@ def _generate_scan(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
 def _scan_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
                h: np.ndarray, d: np.ndarray, n_steps: int, maxd: int,
                seed: int, mode: str, compute_dtype, quantize: str,
-               const_seed: bool, device, x_forced=None) -> np.ndarray:
+               const_seed: bool, device, x_forced=None,
+               rows: np.ndarray = None) -> np.ndarray:
     """The scan engine on `device`: (B, n_steps) int32 samples, or in
     forced mode (B, n_steps, Q) f32 logits.  Sampling seeds a
     torch.Generator on the device with `seed`: deterministic given the
     seed, and equal to the JAX scan's `jax.random.categorical` draws only
-    in distribution."""
+    in distribution.  rows: a shard's global rows of the batch that
+    x_seed, h and d hold whole; it draws the whole batch's noise.  (On the
+    card its cuBLAS products may round otherwise than at the whole batch's
+    size, so there a shard agrees with one device only to rounding.)"""
+    n_rows = None
+    if rows is not None:
+        n_rows = h.shape[0]
+        x_seed, h, d = x_seed[rows], h[rows], d[rows]
+        rows = torch.as_tensor(rows, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     with torch.no_grad():
@@ -421,7 +457,7 @@ def _scan_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
             forced_x=(None if x_forced is None
                       else torch.as_tensor(np.asarray(x_forced),
                                            device=device)),
-            generator=gen)
+            generator=gen, rows=rows, n_rows=n_rows)
     return out.cpu().numpy()
 
 
@@ -479,13 +515,42 @@ def _use_scan(engine: str, quantize: str, d_gen: np.ndarray,
     return True
 
 
+def _mesh_path(mesh, run, B: int) -> np.ndarray:
+    """Sharded decode: the batch, padded to a multiple of the mesh size by
+    repeating its last utterance, splits into equal blocks of rows, and
+    `run(device, rows)` generates each block on its shard's device in a
+    thread of its own; the rows are gathered and the padding dropped.  Each
+    shard works from the whole batch (the kernel's priming, the scan's
+    noise) and keys the kernel's hash off its global rows, so the kernel's
+    output equals one call over the whole batch (the scan's, on a card,
+    to rounding)."""
+    if mesh.rank is not None:
+        raise ValueError(f"decode shards over a mesh that one process "
+                         f"drives whole, got {mesh}")
+    for dev in mesh.devices:
+        resolve_device(dev)
+    per = -(-B // mesh.size)
+
+    def shard(i):
+        dev = mesh.devices[i]
+        rows = np.minimum(np.arange(i * per, (i + 1) * per), B - 1)
+        # K1 captures and replays on the current device (cudaGetDevice)
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            return run(dev, rows)
+
+    with ThreadPoolExecutor(mesh.size) as ex:
+        outs = list(ex.map(shard, range(mesh.size)))
+    return np.concatenate(outs)[:B]
+
+
 def batch_fast_generate(params: Params, cfg: ModelConfig,
                         x: np.ndarray, h: np.ndarray,
                         n_samples_list: Sequence[int], d: np.ndarray,
                         seed: int = 100, mode: str = "sampling",
                         compute_dtype=torch.bfloat16,
                         quantize: str = "none", engine: str = "auto",
-                        device="cuda") -> List[np.ndarray]:
+                        device="cuda", mesh=None) -> List[np.ndarray]:
     """Batch AR synthesis.
 
     x: (B, T_seed) int seed samples (typically one mu-law zero);
@@ -503,8 +568,13 @@ def batch_fast_generate(params: Params, cfg: ModelConfig,
     is bf16 by construction and ignores `compute_dtype`.  The scan samples
     from a torch.Generator seeded with `seed`, and the kernel from its
     counter hash: each is deterministic given the seed.
+
+    mesh (`parallel.Mesh`): the batch shards over its devices (`device` is
+    then not used), one thread per shard (`_mesh_path`).  Through the
+    kernel the output equals one device's bit for bit; through the scan on
+    a card, only to rounding (`_scan_path`).
     """
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else None
     n_steps = int(max(n_samples_list))
     maxd, x_seed, d_gen = _seed_and_d(cfg, x, d, n_steps)
     scan = _use_scan(engine, quantize, d_gen, cfg.upsampling_factor)
@@ -515,15 +585,23 @@ def batch_fast_generate(params: Params, cfg: ModelConfig,
             "replicated first-frame aux and d=1 (not the true history "
             "track); outputs near the seed boundary deviate from the "
             "reference's continuation semantics", x.shape[1])
-    if scan:
-        samples = _scan_path(params, cfg, x_seed, h, d_gen, n_steps, maxd,
-                             seed, mode, compute_dtype, quantize, const_seed,
-                             device)
+    h = np.asarray(h, np.float32)
+
+    def run(dev, rows=None):
+        if scan:
+            return _scan_path(params, cfg, x_seed, h, d_gen, n_steps, maxd,
+                              seed, mode, compute_dtype, quantize, const_seed,
+                              dev, rows=rows)
+        return _pallas_path(params, cfg, x_seed, h, d_gen, n_steps, maxd,
+                            seed, mode, const_seed=const_seed, device=dev,
+                            quantize=quantize, rows=rows)
+
+    if mesh is None:
+        samples = run(device)
     else:
-        samples = _pallas_path(params, cfg, x_seed,
-                               np.asarray(h, np.float32), d_gen, n_steps,
-                               maxd, seed, mode, const_seed=const_seed,
-                               device=device, quantize=quantize)
+        logging.info("batch_fast_generate: %d rows over a %d-shard mesh",
+                     h.shape[0], mesh.size)
+        samples = _mesh_path(mesh, run, h.shape[0])
     return [samples[i, :n] for i, n in enumerate(n_samples_list)]
 
 

@@ -1,6 +1,7 @@
-"""Training and eval steps on one device: masked cross-entropy, Adam with
-the L2 term in the gradient, and the step that runs the forward with either
-engine and updates the parameters in place.
+"""Training and eval steps: masked cross-entropy, Adam with the L2 term in
+the gradient, and the step that runs the forward with either engine and
+updates the parameters in place, on one device or as one rank of a dp
+world.
 
 The JAX package's `make_optimizer` chains `add_decayed_weights(wd)` (when
 wd > 0), `scale_by_adam(0.9, 0.999, 1e-8)` and `scale(-lr)`: the decay
@@ -9,8 +10,14 @@ enters the gradient before the moments, which is the update of
 Adam's moments map to the JAX package's checkpoint as {"count": step,
 "mu": exp_avg tree, "nu": exp_avg_sq tree} in the parameters' layout.
 
-Multi-device training (a mesh, tensor, sequence or pipeline parallelism,
-microbatches) is not ported: ROADMAP.md, Queue 1 item 8.
+Under a dp mesh (`parallel.distributed.rank_mesh`) each rank takes the
+masked loss of its own rows; the gradients and the loss then meet in one
+all-reduce of one flattened buffer, in the parameter tree's fixed order, and
+every rank takes their mean before Adam steps.  The rows and T are equal per
+rank and valid_len is agreed over the ranks, so the mean of the local losses
+is the global batch's loss, as in the JAX package's GSPMD step.  Tensor,
+sequence and pipeline parallelism (and GPipe microbatches) are not ported:
+ROADMAP.md, Queue 1 items 10-12.
 """
 
 from __future__ import annotations
@@ -23,9 +30,7 @@ import torch.nn.functional as F
 
 from qpnet_tpu_torch.config import ModelConfig
 from qpnet_tpu_torch.models.qpnet import Params, forward, tree_map
-
-MULTI_DEVICE = ("multi-device training is not ported yet: ROADMAP.md, "
-                "Queue 1 item 8")
+from qpnet_tpu_torch.parallel.mesh import PP
 
 
 class TrainState(NamedTuple):
@@ -146,12 +151,19 @@ def make_train_step(cfg: ModelConfig, tx: Adam, mesh: Optional[Any] = None,
     """Returns step(state, batch, maxd_bucket=None) -> (state, loss).
 
     batch: {"x": (B,T) int, "h": (B,F,A) f32, "t": (B,T) int, "d": (B,T)
-    f32, "valid_len": int} as tensors on the parameters' device.  The
+    f32, "valid_len": int} as tensors on the parameters' device: under a
+    mesh, this rank's rows, with valid_len agreed over the ranks.  The
     parameters are updated in place by the optimizer held in the state;
-    the loss is returned as a device tensor (no host sync).
+    the loss is returned as a device tensor (no host sync on one device;
+    under a mesh, the global loss after the all-reduce).  fixed_engine
+    "auto" resolves to "xla"; "pallas" runs K2 on each rank's rows.
     """
-    if mesh is not None or n_microbatches:
-        raise NotImplementedError(MULTI_DEVICE)
+    if n_microbatches:
+        raise NotImplementedError(PP)
+    world = None
+    if mesh is not None:
+        from qpnet_tpu_torch.parallel.distributed import require_world
+        world = require_world(mesh)
 
     def step(state: TrainState, batch, maxd_bucket=None):
         B, T = batch["x"].shape
@@ -166,11 +178,27 @@ def make_train_step(cfg: ModelConfig, tx: Adam, mesh: Optional[Any] = None,
             # zero gradient, as in JAX, so Adam and the decay still step it
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if world is not None:
+            loss = _all_reduce_mean(tree_leaves(state.params), loss)
         opt.step()
         return TrainState(state.params, opt, state.iterations + 1), \
             loss.detach()
 
     return step
+
+
+def _all_reduce_mean(leaves, loss: torch.Tensor) -> torch.Tensor:
+    """Average the leaves' gradients and the loss over the ranks in one
+    all-reduce of one buffer: [grads in leaf order, loss]."""
+    from qpnet_tpu_torch.parallel.distributed import all_reduce_mean_
+    flat = torch.cat([p.grad.reshape(-1) for p in leaves]
+                     + [loss.detach().reshape(1).to(leaves[0].grad.dtype)])
+    all_reduce_mean_(flat)
+    off = 0
+    for p in leaves:
+        p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+        off += p.numel()
+    return flat[-1]
 
 
 def make_eval_step(cfg: ModelConfig, compute_dtype=torch.float32):

@@ -8,8 +8,16 @@ fresh optimizer) and cooperative preemption.
 
 `run_training` reads the corpus from wav/h5 lists; `train_loop` is the loop
 itself over any stream of the batcher's batches (chip_smoke.py feeds it the
-windowing of an in-memory corpus).  Multi-host and mesh training are not
-ported: ROADMAP.md, Queue 1 item 8.
+windowing of an in-memory corpus).
+
+Under a dp mesh (one process per rank, `parallel/distributed.py`), as in the
+JAX package's multi-host loop: each host reads its strided slice of the
+lists and batches batch_size / n_hosts windows with seed + host_id, and
+each of its ranks trains on its rows of that batch; the replicas start from
+rank 0's parameters; the step's valid_len gather carries the preemption
+flag, so every rank stops at the same iteration; only the lead rank writes
+checkpoints and the loss record; at the end the ranks check that their
+parameters agree.
 """
 
 from __future__ import annotations
@@ -33,10 +41,11 @@ from qpnet_tpu_torch.train.checkpoint import (adam_state_from_optax,
                                               checkpoint_backend,
                                               load_checkpoint,
                                               save_checkpoint, save_final)
-from qpnet_tpu_torch.train.step import (MULTI_DEVICE, TrainState,
-                                        batch_to_device, load_optimizer_state,
-                                        make_optimizer, make_train_step,
-                                        optimizer_state, resolve_fixed_engine)
+from qpnet_tpu_torch.parallel.mesh import PP
+from qpnet_tpu_torch.train.step import (TrainState, batch_to_device,
+                                        load_optimizer_state, make_optimizer,
+                                        make_train_step, optimizer_state,
+                                        resolve_fixed_engine, tree_leaves)
 from qpnet_tpu_torch.utils.yamlconf import read_loss_record, write_loss_record
 
 
@@ -99,28 +108,50 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig,
                  pretrain: Optional[str] = None, mesh=None,
                  n_microbatches: Optional[int] = None,
                  device="cuda") -> TrainState:
-    """Train on the wav/h5 pairs of two lists (see `train_loop`)."""
-    if mesh is not None or n_microbatches:
-        raise NotImplementedError(MULTI_DEVICE)
+    """Train on the wav/h5 pairs of two lists (see `train_loop`).  Under a
+    dp mesh each host batches its slice of the lists (module docstring)."""
+    if n_microbatches:
+        raise NotImplementedError(PP)
     from qpnet_tpu_torch.data.stats import load_scaler
+    local_bs, seed = tcfg.batch_size, tcfg.seed
+    if mesh is not None:
+        from qpnet_tpu_torch.parallel import distributed as PD
+        w = PD.require_world(mesh)
+        if tcfg.batch_size % w.size:
+            raise ValueError(f"global batch_size {tcfg.batch_size} must "
+                             f"divide over the {w.size} dp ranks")
+        local_bs = tcfg.batch_size // w.n_hosts
+        wav_list = PD.host_shard_list(wav_list)
+        feat_list = PD.host_shard_list(feat_list)
+        seed = tcfg.seed + PD.process_index()
+        logging.info("host %d/%d: %d utterances, host batch %d over %d "
+                     "ranks", w.host_id, w.n_hosts, len(wav_list), local_bs,
+                     w.local_ranks)
     scaler = load_scaler(stats_path, feature_type)
     batches = background(2)(train_window_generator)(
         wav_list, feat_list, cfg, feat_transform=scaler.transform,
         feature_type=feature_type, batch_length=tcfg.batch_length,
-        batch_size=tcfg.batch_size, max_length=tcfg.max_length,
-        f0_threshold=tcfg.f0_threshold, shuffle=True, seed=tcfg.seed,
-        loop=True)
+        batch_size=local_bs, max_length=tcfg.max_length,
+        f0_threshold=tcfg.f0_threshold, shuffle=True, seed=seed, loop=True)
     return train_loop(cfg, tcfg, batches, expdir, resume=resume,
-                      pretrain=pretrain, device=device)
+                      pretrain=pretrain, device=device, mesh=mesh)
 
 
 def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
                expdir: str, resume: Optional[str] = None,
                pretrain: Optional[str] = None,
-               device="cuda") -> TrainState:
+               device="cuda", mesh=None) -> TrainState:
     """Run iterations up to `tcfg.iters` over the batcher's numpy batches;
-    returns the final state (parameters and optimizer on `device`)."""
+    returns the final state (parameters and optimizer on `device`).  Under
+    a dp mesh the batches are this rank's host's, the device is the
+    rank's, and `tcfg.batch_size` is the global batch."""
+    world = None
+    if mesh is not None:
+        from qpnet_tpu_torch.parallel import distributed as PD
+        world = PD.require_world(mesh)
+        device = world.device
     device = resolve_device(device)
+    is_lead = world is None or world.rank == 0
     checkpoint_backend()
     os.makedirs(expdir, exist_ok=True)
     np.random.seed(tcfg.seed)
@@ -133,11 +164,12 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
     # activations get large (the JAX package's thresholds)
     T = padded_shape(tcfg.max_length, cfg.upsampling_factor)
     remat_threshold = 130_000 if compute_dtype == torch.float32 else 260_000
-    remat = max(1, tcfg.batch_size) * T > remat_threshold
+    per_rank = max(1, tcfg.batch_size // (mesh.size if mesh else 1))
+    remat = per_rank * T > remat_threshold
     if compute_dtype == torch.bfloat16:
         logging.info("mixed precision: bf16 products/activations, "
                      "f32 master weights and loss accumulation")
-    step_fn = make_train_step(cfg, tx, remat=remat,
+    step_fn = make_train_step(cfg, tx, mesh=mesh, remat=remat,
                               compute_dtype=compute_dtype,
                               fixed_engine=tcfg.fixed_engine)
     engine = resolve_fixed_engine(tcfg.fixed_engine, cfg, tcfg.batch_size, T,
@@ -174,12 +206,18 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
             logging.info("loaded pretrained model %s (fresh optimizer).",
                          pretrain)
         opt = tx.init(params)
+    if world is not None:
+        # the replicas start equal: rank 0's parameters, at one iteration
+        PD.check_agreed(iterations, "the iteration to start from")
+        PD.broadcast_(tree_leaves(params))
     state = TrainState(params, opt, iterations)
 
     def maxd_bucket(d_np):
         """The adaptive layers fuse into the kernel only on request
-        (QPNET_FUSE_ADAPTIVE=1), as in the JAX package."""
-        if engine != "pallas" or not os.environ.get("QPNET_FUSE_ADAPTIVE"):
+        (QPNET_FUSE_ADAPTIVE=1) and, as in the JAX package, not under a
+        mesh."""
+        if (engine != "pallas" or world is not None
+                or not os.environ.get("QPNET_FUSE_ADAPTIVE")):
             return None
         from qpnet_tpu_torch.models.generate import bucket_maxd
         return int(bucket_maxd(float(np.ceil(d_np.max()))))
@@ -193,12 +231,27 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
     interval_start = time.time()
     logging.info("training start!")
     guard = PreemptionGuard().install()
+    local_tripped = False    # trip state after the previous iteration
+    trip_synced = False      # its OR over the ranks (rides the vl gather)
     try:
         for i in range(iterations, tcfg.iters):
             batch_np = next(batches)
             batch_np.pop("window_lens", None)
-            batch = batch_to_device(batch_np, device)
-            state, loss = step_fn(state, batch, maxd_bucket(batch_np["d"]))
+            if world is not None:
+                # every rank masks the same positions; the one gather of
+                # the step also carries the preemption flag, sampled again
+                # here so a SIGTERM that lands now rides this step's gather
+                local_tripped = local_tripped or guard.signum is not None
+                vl, trip_synced = PD.global_min_and_any(
+                    batch_np["valid_len"], local_tripped)
+                batch = PD.make_global_batch(
+                    mesh, {k: batch_np[k] for k in ("x", "h", "t", "d")})
+                batch["valid_len"] = int(vl)
+                state, loss = step_fn(state, batch)
+            else:
+                batch = batch_to_device(batch_np, device)
+                state, loss = step_fn(state, batch,
+                                      maxd_bucket(batch_np["d"]))
             pending.append(loss)
             logged = (i + 1) % tcfg.intervals == 0
             if logged:
@@ -211,7 +264,8 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
                 loss_record.append(avg)
                 pending = []
             saved_here = (i + 1) % tcfg.checkpoint_interval == 0
-            if saved_here:
+            if saved_here and is_lead:
+                # the parameters are replicated: only the lead writes
                 t_save = time.time()
                 save(i + 1)
                 # checkpoint seconds do not count in the next sec/batch
@@ -219,19 +273,41 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
                 logging.info("%d-iter checkpoint created.", i + 1)
             if logged:
                 interval_start = time.time()
-            if guard.tripped_after_step() and (i + 1) < tcfg.iters:
-                if not saved_here:
-                    save(i + 1)
-                logging.warning(
-                    "preemption%s at iteration %d: checkpoint saved, "
-                    "exiting (resume with --resume auto)",
-                    f" (signal {guard.signum})" if guard.signum else "",
-                    i + 1)
-                write_loss_record(flossyml, loss_record)
+            local_tripped = guard.tripped_after_step()
+            # ranks agree on the stop: one lone early exit would leave the
+            # others waiting in the next step's collectives
+            tripped = trip_synced if world is not None else local_tripped
+            if tripped and (i + 1) < tcfg.iters:
+                if is_lead:
+                    if not saved_here:
+                        save(i + 1)
+                    logging.warning(
+                        "preemption%s at iteration %d: checkpoint saved, "
+                        "exiting (resume with --resume auto)",
+                        f" (signal {guard.signum})" if guard.signum else "",
+                        i + 1)
+                    write_loss_record(flossyml, loss_record)
                 return state
     finally:
         guard.uninstall()
-    save_final(expdir, state.params)
-    logging.info("final checkpoint created.")
-    write_loss_record(flossyml, loss_record)
+    if world is not None:
+        _check_replicas(state, world)
+    if is_lead:
+        save_final(expdir, state.params)
+        logging.info("final checkpoint created.")
+        write_loss_record(flossyml, loss_record)
     return state
+
+
+def _check_replicas(state: TrainState, world) -> None:
+    """Log the dp all-reduce's cost, and raise unless every rank holds the
+    same parameters (a float64 checksum of every leaf, gathered)."""
+    from qpnet_tpu_torch.parallel import distributed as PD
+    total = float(sum(p.detach().double().sum()
+                      for p in tree_leaves(state.params)))
+    sums = PD.check_agreed(total, "the parameter checksum")
+    logging.info("dp: %d gradient all-reduces over %s, %.3f ms each (host "
+                 "clock); parameter checksum %.17g equal on the %d ranks",
+                 world.reduces, world.grad_backend,
+                 world.reduce_seconds / max(world.reduces, 1) * 1e3,
+                 sums[0], world.size)

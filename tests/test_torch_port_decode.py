@@ -144,12 +144,14 @@ def _library_wavs(e, args_list, **kw):
                                    ("--quantize", "int8_weights"),
                                    ("--n_devices", "2")])
 def test_cli_rejects_what_is_not_ported(expdir, tmp_path, extra):
-    """Multi-device decode is not ported and w8a8 is no scheme of the scan
+    """--n_devices 2 needs two devices of --device's type, and the CPU is
+    one (make_mesh's rule; sharded decode on CPU shards:
+    tests/test_torch_port_multihost.py); w8a8 is no scheme of the scan
     engine; --engine xla and --quantize int8_weights decode through the
     scan engine, as batch_fast_generate does on the CLI's batches."""
     out = str(tmp_path / "o" / "feat_id.wav")
     if "--n_devices" in extra:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="2 cpu devices requested"):
             qpnet_decode.main(argv(expdir, out, *extra))
         return
     if "w8a8" in extra:

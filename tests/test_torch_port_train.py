@@ -142,10 +142,13 @@ def test_train_step_matches_jax(engine, wd):
 
 
 def test_step_rejects_multi_device_and_eval_step():
+    """A dp mesh needs the dp world it spans (one process per rank:
+    tests/test_torch_port_parallel.py); GPipe microbatches are pp's."""
+    from qpnet_tpu_torch.parallel import Mesh
     _, pt, _, cfg = carried(4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TS.make_train_step(cfg, TS.make_optimizer(), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="dp world"):
+        TS.make_train_step(cfg, TS.make_optimizer(), mesh=Mesh(["cpu"] * 2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         TS.make_train_step(cfg, TS.make_optimizer(), n_microbatches=2)
     b = TS.batch_to_device(make_batch(cfg, 1, 120, 0), "cpu")
     loss = TS.make_eval_step(cfg)(pt, b)
@@ -411,11 +414,31 @@ def test_cli_defaults_to_cuda(corpus, tmp_path):
     ["--n_devices", "2"], ["--tp", "2"], ["--sp", "2"], ["--pp", "2"],
     ["--coordinator", "localhost:1234"], ["--n_hosts", "2"],
     ["--host_id", "0"]])
-def test_cli_rejects_what_is_not_ported(corpus, tmp_path, extra):
+def test_cli_rejects_what_is_not_ported(corpus, tmp_path, extra, monkeypatch):
+    """tp, sp and pp still raise, naming their ROADMAP items.  dp is
+    ported: --n_devices with --device cuda needs that many cards (asked
+    for one more than the host has: ValueError; CPU ranks:
+    tests/test_torch_port_multihost.py),
+    and a lone --coordinator, --n_hosts or --host_id is a single-host run,
+    as in the JAX CLI (initialize_multihost returns False)."""
     from qpnet_tpu_torch.bin import qpnet_train as cli
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        cli.main(train_argv(corpus, str(tmp_path), "--device", "cpu",
-                            *extra))
+    for k in ("QPNET_COORDINATOR", "QPNET_NUM_HOSTS", "QPNET_HOST_ID"):
+        monkeypatch.delenv(k, raising=False)
+    item = {"--tp": "10", "--sp": "11", "--pp": "12"}.get(extra[0])
+    argv = train_argv(corpus, str(tmp_path), "--device", "cpu", *extra)
+    if item:
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            cli.main(argv)
+    elif extra[0] == "--n_devices":
+        more = max(2, torch.cuda.device_count() + 1)
+        with pytest.raises(ValueError, match=f"{more} cuda devices requested"):
+            cli.main(argv + ["--n_devices", str(more), "--device", "cuda"])
+        assert not os.path.exists(str(tmp_path / "model.conf"))
+    else:
+        cli.main(argv)
+        got = TT.read_loss_record(str(tmp_path / "loss-final.yml"))
+        assert len(got) == 4 and np.all(np.isfinite(got))
+        assert os.path.exists(str(tmp_path / "checkpoint-final.pkl"))
 
 
 def test_orbax_backend_is_not_ported(corpus, tmp_path, monkeypatch):
