@@ -178,7 +178,31 @@ Phases, each reported on its own line; any failure exits non-zero:
      all-reduce's ms per step and peak device memory per rank.  K1's
      launches go into `launches_by_path["dp_decode"]` (both branches), the
      ranks' K2 launches into the K2 rows' `launches_by_path["dp_train"]`.
-Each main path (phases 4, 7, 10, 12-18) also prints its peak device memory.
+ 19. deep-net training: K2 against its twins at the Rd10Rr3Ed4Er1
+     geometry (30 fixed layers, dilations 1-512, at full width; random
+     weights from seed 0) on the first window of the deep tool's corpus
+     (B=1, T=22,550, the registry's padded max_length), on phase 6's
+     gates, f32 and bf16, fixed layers only (the tool's path) and with the
+     4 adaptive layers fused at the corpus's maxd bucket (the trainer's
+     QPNET_FUSE_ADAPTIVE path); K2's times there (fixed only, f32 and
+     bf16) beside their bounds, twins and the products through
+     torch.matmul, with device ms by CUDA kernel; then the main path:
+     `tools/deep_train_smoke.train_run` in bf16 for DEEP_ITERS iterations
+     through the kernel engine (K2 launched on every step) and through
+     the plain engine (K2 not launched), each passing the tool's loss gate,
+     with ms per step and peak device memory.  K2's launches go into the
+     K2 rows' `launches_by_path["deep_train"]`.
+ 20. tensor parallelism on the one card: two gloo ranks on cuda:0 as a
+     (dp=1, tp=2) mesh, the default net at full width, f32, the plain
+     engine, 4 steps on 3,300-sample windows of phase 7's corpus, beside
+     one process on the same batches: losses within rtol 2e-5, step 1's
+     gradients within 1e-4 of each leaf's norm from the float64 gradient,
+     each rank's W_cur holding 2R/2 paired columns, and the checkpoint the
+     ranks gather equal in layout to the one process's; the final
+     parameters' distance from one process's printed, not gated; ms per
+     step beside phase 8's.  No kernel
+     runs on this path (the tp forward is the plain engine, as in JAX).
+Each main path (phases 4, 7, 10, 12-19) also prints its peak device memory.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
@@ -483,8 +507,12 @@ def main() -> int:
     kernels[0]["launches_by_path"]["dp_decode"] = dp["k1"]
     kernels[1]["launches_by_path"] = {"serve": kernels[1]["launches"],
                                       "dp_decode": dp["w8a8"]}
-    for row, n in zip(kernels[2:], dp["k2"]):
-        row["launches_by_path"] = {"train": row["launches"], "dp_train": n}
+    deep = deep_train_smoke(dev, card)
+    for row, n, d in zip(kernels[2:], dp["k2"], deep):
+        row["launches_by_path"] = {"train": row["launches"], "dp_train": n,
+                                   "deep_train": d.pop("launches")}
+        row["deep_net"] = d
+    tp_smoke(dev, card, kernels[2]["train_step_ms"]["xla"])
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -923,6 +951,85 @@ def memory_corpus(cfg, seed, n_utts=3, seconds=(2.0, 3.0)):
     return utts, Scaler.from_stats(mean, scale)
 
 
+def k2_check(params, cfg, batch, dtype, fused, dev, label="k2"):
+    """K2's forward and backward against their twins on the call that
+    `forward(fixed_engine="pallas")` makes on `batch` (fixed layers only,
+    or with the adaptive layers fused at the batch's maxd bucket): f32
+    within K2_TOL of the f32 twin; bf16 on the f64-summing twin's gate;
+    the fixed-only backward bit-identical when repeated.  Returns ((max
+    |d| of the forward's outputs, of the backward's), (twin forward ms,
+    twin backward ms))."""
+    import torch
+
+    from qpnet_tpu_torch import bench
+    from qpnet_tpu_torch.ops import train_kernel as TK
+    f32 = torch.float32
+    dname = "float32" if dtype == f32 else "bfloat16"
+    static, W, o0, h, d = bench.stack_inputs(params, cfg, batch, dtype, fused)
+    tag = f"{dname} {'fused' if fused else 'fixed'}"
+    k_out = TK.stack_forward(static, dtype, W, o0, h, d)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    do = torch.randn(k_out[0].shape, generator=gen, device=dev)
+    dsk = torch.randn(k_out[1].shape, generator=gen, device=dev)
+    k_b = TK.stack_backward(static, dtype, W, k_out[2], k_out[3], h, d, do,
+                            dsk)
+    # the twins: one call each, on the host clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_out = TK.fixed_stack_reference_fwd(static, dtype, W, o0, h, d)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r_b = TK.fixed_stack_reference_bwd(static, dtype, W, k_out[2], k_out[3],
+                                       h, d, do, dsk)
+    torch.cuda.synchronize()
+    twin_ms = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+    names = list(K2_OUTPUTS)
+    kern, twin = k2_outputs(k_out, k_b), k2_outputs(r_out, r_b)
+    del r_out, r_b
+    for n, a in zip(names, kern):
+        check(bool(torch.isfinite(a).all()), f"K2 {tag} {n} finite")
+    if dtype == f32:
+        # f32: each output within K2_TOL of the f32 twin
+        res = {n: rel_err(a, b) for n, a, b in zip(names, kern, twin)}
+        tol = {n: K2_TOL for n in names}
+        against = "the f32 twin"
+    else:
+        # bf16: the kernel and the f32-summing twin each against the twin
+        # summed in float64, the kernel within max(K2_BF16_TOL, 2 x the
+        # f32-summing twin's distance) for each output
+        r64 = k2_outputs(TK.fixed_stack_reference_fwd(
+            static, dtype, W, o0, h, d, f64_sums=True),
+            TK.fixed_stack_reference_bwd(
+                static, dtype, W, k_out[2], k_out[3], h, d, do, dsk,
+                f64_sums=True))
+        res = {n: rel_err(a, b) for n, a, b in zip(names, kern, r64)}
+        t32 = {n: rel_err(a, b)[0] for n, a, b in zip(names, twin, r64)}
+        tol = {n: max(K2_BF16_TOL, 2 * t32[n]) for n in names}
+        against = "the f64 twin"
+        del r64
+    worst = max(names, key=lambda n: res[n][0] / tol[n])
+    phase(label, f"{tag} {len(static[0]) + len(static[1])} layers, B="
+                 f"{o0.shape[0]} T={o0.shape[1]}, maxd {static[2]}, against "
+                 f"{against}: worst {worst} {res[worst][0]:.3e} (tol "
+                 f"{tol[worst]:.3e}); "
+                 + ", ".join(f"{n} {res[n][0]:.1e}" for n in names)
+                 + ("" if dtype == f32 else "; f32-summing twin: " +
+                    ", ".join(f"{n} {t32[n]:.1e}" for n in names)))
+    for n in names:
+        check(res[n][0] <= tol[n], f"K2 {tag} {n} {res[n][0]} > {tol[n]}")
+    if not fused:
+        again = TK.stack_backward(static, dtype, W, k_out[2], k_out[3], h, d,
+                                  do, dsk)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(k_b[:2] + tuple(k_b[2].values()),
+                       again[:2] + tuple(again[2].values())))
+        phase(label, f"{tag} backward twice bit-identical: {same}")
+        check(same, f"K2 {tag} backward must be deterministic")
+    fwd_err = max(res[n][1] for n in names[:4])
+    bwd_err = max(res[n][1] for n in names[4:])
+    return (fwd_err, bwd_err), twin_ms
+
+
 def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
                 batch_length=20000):
     """Phases 6-8 on `dev`; returns the K2 kernels' records."""
@@ -945,72 +1052,8 @@ def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
     for dtype in (f32, bf16):
         dname = "float32" if dtype == f32 else "bfloat16"
         for fused in (False, True):
-            static, W, o0, h, d = bench.stack_inputs(params, cfg, batch,
-                                                     dtype, fused)
-            tag = f"{dname} {'fused' if fused else 'fixed'}"
-            k_out = TK.stack_forward(static, dtype, W, o0, h, d)
-            gen = torch.Generator(device=dev).manual_seed(7)
-            do = torch.randn(k_out[0].shape, generator=gen, device=dev)
-            dsk = torch.randn(k_out[1].shape, generator=gen, device=dev)
-            k_b = TK.stack_backward(static, dtype, W, k_out[2], k_out[3], h,
-                                    d, do, dsk)
-            # the twins: one call each, on the host clock
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r_out = TK.fixed_stack_reference_fwd(static, dtype, W, o0, h, d)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            r_b = TK.fixed_stack_reference_bwd(static, dtype, W, k_out[2],
-                                               k_out[3], h, d, do, dsk)
-            torch.cuda.synchronize()
-            twin_ms[(dname, fused)] = ((t1 - t0) * 1e3,
-                                       (time.perf_counter() - t1) * 1e3)
-            names = list(K2_OUTPUTS)
-            kern, twin = k2_outputs(k_out, k_b), k2_outputs(r_out, r_b)
-            for n, a in zip(names, kern):
-                check(bool(torch.isfinite(a).all()), f"K2 {tag} {n} finite")
-            if dtype == f32:
-                # f32: each output within K2_TOL of the f32 twin
-                res = {n: rel_err(a, b) for n, a, b in zip(names, kern, twin)}
-                tol = {n: K2_TOL for n in names}
-                against = "the f32 twin"
-            else:
-                # bf16: the kernel and the f32-summing twin each against the
-                # twin summed in float64, the kernel within max(K2_BF16_TOL,
-                # 2 x the f32-summing twin's distance) for each output
-                r64 = k2_outputs(TK.fixed_stack_reference_fwd(
-                    static, dtype, W, o0, h, d, f64_sums=True),
-                    TK.fixed_stack_reference_bwd(
-                        static, dtype, W, k_out[2], k_out[3], h, d, do, dsk,
-                        f64_sums=True))
-                res = {n: rel_err(a, b) for n, a, b in zip(names, kern, r64)}
-                t32 = {n: rel_err(a, b)[0]
-                       for n, a, b in zip(names, twin, r64)}
-                tol = {n: max(K2_BF16_TOL, 2 * t32[n]) for n in names}
-                against = "the f64 twin"
-                del r64
-            worst = max(names, key=lambda n: res[n][0] / tol[n])
-            phase("k2", f"{tag} maxd {static[2]}, against {against}: worst "
-                        f"{worst} {res[worst][0]:.3e} (tol {tol[worst]:.3e}); "
-                        + ", ".join(f"{n} {res[n][0]:.1e}" for n in names)
-                        + ("" if dtype == f32 else "; f32-summing twin: " +
-                           ", ".join(f"{n} {t32[n]:.1e}" for n in names)))
-            for n in names:
-                check(res[n][0] <= tol[n],
-                      f"K2 {tag} {n} {res[n][0]} > {tol[n]}")
-            if not fused:
-                again = TK.stack_backward(static, dtype, W, k_out[2],
-                                          k_out[3], h, d, do, dsk)
-                same = all(torch.equal(a, b) for a, b in
-                           zip(k_b[:2] + tuple(k_b[2].values()),
-                               again[:2] + tuple(again[2].values())))
-                phase("k2", f"{tag} backward twice bit-identical: {same}")
-                check(same, f"K2 {tag} backward must be deterministic")
-                del again
-            fwd_err = max(res[n][1] for n in names[:4])
-            bwd_err = max(res[n][1] for n in names[4:])
-            errs[(dname, fused)] = (fwd_err, bwd_err)
-            del k_out, r_out, k_b, r_b, kern, twin
+            errs[(dname, fused)], twin_ms[(dname, fused)] = k2_check(
+                params, cfg, batch, dtype, fused, dev)
     torch.cuda.empty_cache()
 
     # 7. the training main path: train_loop through the kernels
@@ -1101,65 +1144,76 @@ def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
     torch.cuda.empty_cache()
 
     # 8. times at the main path's variant (fixed layers only), f32 and bf16
-    times = {}
+    times, steps_ms = {}, {}
     for dtype in (f32, bf16):
         dname = "float32" if dtype == f32 else "bfloat16"
-        static, W, o0, h, d = bench.stack_inputs(params, cfg, batch, dtype,
-                                                 False)
-        f_ms, out = bench.cuda_ms(
-            lambda: TK.stack_forward(static, dtype, W, o0, h, d))
-        gen = torch.Generator(device=dev).manual_seed(8)
-        do = torch.randn(out[0].shape, generator=gen, device=dev)
-        dsk = torch.randn(out[1].shape, generator=gen, device=dev)
-        b_ms, _ = bench.cuda_ms(lambda: TK.stack_backward(
-            static, dtype, W, out[2], out[3], h, d, do, dsk))
-        fp_ms, bp_ms = twin_ms[(dname, False)]
-        bounds = bench.stack_bounds(static, 1, T, dtype)
-        by_kernel = [bench.k2_kernels(bench.device_ms_by_kernel(fn)) for fn in (
-            lambda: TK.stack_forward(static, dtype, W, o0, h, d),
-            lambda: TK.stack_backward(static, dtype, W, out[2], out[3], h, d,
-                                      do, dsk))]
-        lib_ms = bench.stack_library_ms(static, 1, T, dtype)
-        steps_ms = {e: bench.train_step_ms(params, cfg, b_np, e, dtype)[0]
-                    for e in ("xla", "pallas")}
-        times[dname] = (f_ms, b_ms, fp_ms, bp_ms, bounds, steps_ms, lib_ms)
-        for i, (name, ms, twin) in enumerate((("fwd", f_ms, fp_ms),
-                                              ("bwd", b_ms, bp_ms))):
-            bd = bounds[name]
-            per = ("not measured (the profiler saw none)"
-                   if by_kernel[i] is None else ", ".join(
-                       f"{k} {v:.3f}" for k, v in by_kernel[i].items()))
-            phase("time", f"K2-{name} {dname} B=1 T={T} {len(static[0])} "
-                          f"layers: {ms:.3f} ms ({bd[2] / ms / 1e9:.2f} "
-                          f"TFLOP/s); bound {bd[0]:.4f} ms by {bd[1]} "
-                          f"({bd[4]}); plain twin {twin:.3f} ms; torch.matmul "
-                          f"products only {lib_ms[i]:.3f} ms; device ms by "
-                          f"kernel: {per} | {card}")
+        times[dname] = k2_times(params, cfg, batch, dtype,
+                                twin_ms[(dname, False)], dev, card)
+        steps_ms[dname] = {e: bench.train_step_ms(params, cfg, b_np, e,
+                                                  dtype)[0]
+                           for e in ("xla", "pallas")}
         phase("time", f"train step {dname} B=1 T={T}: xla "
-                      f"{steps_ms['xla']:.3f} ms, pallas "
-                      f"{steps_ms['pallas']:.3f} ms | {card}")
-        del out
-    f_ms, b_ms, fp_ms, bp_ms, bounds, steps_ms, lib_ms = times["float32"]
-    bf = times["bfloat16"]
+                      f"{steps_ms[dname]['xla']:.3f} ms, pallas "
+                      f"{steps_ms[dname]['pallas']:.3f} ms | {card}")
     common = {"route": "cuda", "source": "qpnet_tpu_torch/csrc/train_kernel.cu",
               "library_is": "products only, torch.matmul, f32 without TF32"}
     return [
-        dict(name="train_kernel_fwd", **common,
-             replaces="qpnet_tpu/ops/train_kernel.py:195",
-             tpu_kernel="qpnet_tpu/ops/train_kernel.py::_fwd_call",
-             launches=launches[0], max_abs_err=errs[("float32", False)][0],
-             ms=f_ms, plain_ms=fp_ms, bound_ms=bounds["fwd"][0],
-             bound_by=bounds["fwd"][1], library_ms=lib_ms[0], bf16_ms=bf[0],
-             bf16_bound_ms=bf[4]["fwd"][0], bf16_library_ms=bf[6][0],
-             train_step_ms=steps_ms),
-        dict(name="train_kernel_bwd", **common,
-             replaces="qpnet_tpu/ops/train_kernel.py:431",
-             tpu_kernel="qpnet_tpu/ops/train_kernel.py::_bwd_call",
-             launches=launches[1], max_abs_err=errs[("float32", False)][1],
-             ms=b_ms, plain_ms=bp_ms, bound_ms=bounds["bwd"][0],
-             bound_by=bounds["bwd"][1], library_ms=lib_ms[1], bf16_ms=bf[1],
-             bf16_bound_ms=bf[4]["bwd"][0], bf16_library_ms=bf[6][1],
-             train_step_ms=steps_ms)]
+        dict(name=f"train_kernel_{name}", **common,
+             replaces=f"qpnet_tpu/ops/train_kernel.py:{line}",
+             tpu_kernel=f"qpnet_tpu/ops/train_kernel.py::_{name}_call",
+             launches=launches[i], max_abs_err=errs[("float32", False)][i],
+             **times["float32"][name],
+             bf16_ms=times["bfloat16"][name]["ms"],
+             bf16_bound_ms=times["bfloat16"][name]["bound_ms"],
+             bf16_library_ms=times["bfloat16"][name]["library_ms"],
+             train_step_ms=steps_ms["float32"])
+        for i, (name, line) in enumerate((("fwd", 195), ("bwd", 431)))]
+
+
+def k2_times(params, cfg, batch, dtype, twin_ms, dev, card, net=""):
+    """K2's forward and backward (fixed layers only) on `batch`, each
+    timed with CUDA events beside its bound, its twin's time (`twin_ms`,
+    from `k2_check`), the same products through torch.matmul and the
+    device ms by CUDA kernel; prints one line per call and returns
+    {"fwd": {ms, plain_ms, bound_ms, bound_by, library_ms}, "bwd": ...}."""
+    import torch
+
+    from qpnet_tpu_torch import bench
+    from qpnet_tpu_torch.ops import train_kernel as TK
+    dname = "float32" if dtype == torch.float32 else "bfloat16"
+    static, W, o0, h, d = bench.stack_inputs(params, cfg, batch, dtype, False)
+    B, T = o0.shape[:2]
+    f_ms, out = bench.cuda_ms(
+        lambda: TK.stack_forward(static, dtype, W, o0, h, d))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    do = torch.randn(out[0].shape, generator=gen, device=dev)
+    dsk = torch.randn(out[1].shape, generator=gen, device=dev)
+    b_ms, _ = bench.cuda_ms(lambda: TK.stack_backward(
+        static, dtype, W, out[2], out[3], h, d, do, dsk))
+    bounds = bench.stack_bounds(static, B, T, dtype)
+    by_kernel = [bench.k2_kernels(bench.device_ms_by_kernel(fn)) for fn in (
+        lambda: TK.stack_forward(static, dtype, W, o0, h, d),
+        lambda: TK.stack_backward(static, dtype, W, out[2], out[3], h, d,
+                                  do, dsk))]
+    lib_ms = bench.stack_library_ms(static, B, T, dtype)
+    res = {}
+    for i, (name, ms) in enumerate((("fwd", f_ms), ("bwd", b_ms))):
+        bd = bounds[name]
+        per = ("not measured (the profiler saw none)"
+               if by_kernel[i] is None else ", ".join(
+                   f"{k} {v:.3f}" for k, v in by_kernel[i].items()))
+        phase("time", f"K2-{name} {dname} {net}B={B} T={T} "
+                      f"{len(static[0])} layers: {ms:.3f} ms "
+                      f"({bd[2] / ms / 1e9:.2f} TFLOP/s); bound {bd[0]:.4f} "
+                      f"ms by {bd[1]} ({bd[4]}); plain twin "
+                      f"{twin_ms[i]:.3f} ms; torch.matmul products only "
+                      f"{lib_ms[i]:.3f} ms; device ms by kernel: {per} | "
+                      f"{card}")
+        res[name] = dict(ms=ms, plain_ms=twin_ms[i], bound_ms=bd[0],
+                         bound_by=bd[1], library_ms=lib_ms[i])
+    del out
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2826,6 +2880,196 @@ def dp_train_smoke(card, step_ms):
         if stand_in:
             del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
     return k2
+
+
+# --- phase 19: deep-net training on the card ---------------------------------
+
+DEEP_ITERS = 150     # each engine: the loss gate's first and last 50 apart
+
+
+def deep_train_smoke(dev, card):
+    """Phase 19: K2 against its twins at the deep net's geometry, its times
+    there, then the deep tool's loop through both engines; returns one
+    record per K2 row (forward, backward), each with the kernel engine's
+    launches on the loop."""
+    import torch
+
+    from qpnet_tpu_torch.models.qpnet import init_params
+    from qpnet_tpu_torch.ops import train_kernel as TK
+    from qpnet_tpu_torch.tools import deep_train_smoke as DT
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg, batch_length, max_length, batch_size = DT.registry_geometry()
+    utts = DT.synthetic_utterances(up=cfg.upsampling_factor, n_aux=cfg.n_aux)
+    batch = next(DT.window_stream(cfg, utts, batch_length, max_length,
+                                  batch_size))
+    batch.pop("window_lens")
+    T = batch["x"].shape[1]
+    params = init_params(0, cfg, device=dev)
+    errs, twin_ms = {}, {}
+    for dtype in (f32, bf16):
+        for fused in (False, True):
+            errs[(dtype, fused)], twin_ms[(dtype, fused)] = k2_check(
+                params, cfg, batch, dtype, fused, dev, "deep k2")
+            torch.cuda.empty_cache()
+    times = {dtype: k2_times(params, cfg, batch, dtype,
+                             twin_ms[(dtype, False)], dev, card,
+                             f"{DT.NETWORK} ")
+             for dtype in (f32, bf16)}
+    del params
+    torch.cuda.empty_cache()
+
+    # the main path: the deep tool's loop in bf16 through both engines
+    runs = {}
+    for engine in ("pallas", "xla"):
+        TK.reset_launch_counts()
+        out = DT.train_run(cfg, DEEP_ITERS, "bfloat16", remat=True,
+                           device=dev, fixed_engine=engine,
+                           batch_length=batch_length, max_length=max_length,
+                           batch_size=batch_size, utts=utts,
+                           log=lambda msg: phase("deep", msg))
+        launches = (TK.fwd_launch_count, TK.bwd_launch_count)
+        losses = out.pop("losses")
+        runs[engine] = launches
+        phase("deep", json.dumps(out))
+        phase("time", f"deep-net training, {engine} engine, bf16, B=1, "
+                      f"T={T}: {out['ms_per_step_median']:.3f} ms per step "
+                      f"(median after 10), first step {out['compile_s']:.3f} "
+                      f"s; losses {losses[0]:.4f} -> {losses[-1]:.4f}, mean "
+                      f"of the first 50 {out['loss_first50_mean']} and of "
+                      f"the last 50 {out['loss_last50_mean']}; K2 launches "
+                      f"fwd {launches[0]} bwd {launches[1]}; peak device "
+                      f"memory {out['peak_device_mib']:.1f} MiB | {card}")
+        check(all(np.isfinite(losses)), f"deep {engine}: finite losses")
+        check(out["loss_decreased"], f"deep {engine}: the loss gate (the "
+                                     f"last 50 below the first 50)")
+        want = (DEEP_ITERS, DEEP_ITERS) if engine == "pallas" else (0, 0)
+        check(launches == want, f"deep {engine}: K2 launches {launches}, "
+                                f"expected {want}")
+        torch.cuda.empty_cache()
+    phase("deep", f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return [dict(launches=runs["pallas"][i], T=T,
+                 max_abs_err=errs[(f32, False)][i],
+                 **times[f32][name],
+                 bf16_ms=times[bf16][name]["ms"],
+                 bf16_bound_ms=times[bf16][name]["bound_ms"],
+                 bf16_library_ms=times[bf16][name]["library_ms"])
+            for i, name in enumerate(("fwd", "bwd"))]
+
+
+# --- phase 20: tensor parallelism on one card ---------------------------------
+
+TP_STEPS = 4
+TP_LR = 1e-4
+
+
+def tp_smoke(dev, card, step_ms):
+    """Phase 20: two gloo ranks on the card as a (dp=1, tp=2) mesh against
+    one process on the same batches."""
+    import torch
+
+    from qpnet_tpu_torch.config import ModelConfig
+    from qpnet_tpu_torch.data import batcher as DB
+    from qpnet_tpu_torch.models.qpnet import init_params, tree_map
+    from qpnet_tpu_torch.parallel import dryrun
+    from qpnet_tpu_torch.train import step as TS
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    utts, scaler = memory_corpus(cfg, seed=7)
+    stream = DB.window_batches(
+        DB.utterance_stream(utts, lambda u: u, seed=1), cfg,
+        feat_transform=scaler.transform, batch_length=2200, batch_size=1,
+        max_length=3300)
+    batches = [next(stream) for _ in range(TP_STEPS)]
+    for b in batches:
+        b.pop("window_lens")
+    T = batches[0]["x"].shape[1]
+    one_rep = {}
+    one_losses, one_params = dryrun.steps(cfg, batches, dev, engine="xla",
+                                          lr=TP_LR, report=one_rep)
+    shard_dev = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+                 else str(dev))
+    t0 = time.perf_counter()
+    ranks = dryrun.run_dp_steps(2, cfg, batches, tp=2,
+                                devices=[shard_dev] * 2, report=True,
+                                engine="xla", lr=TP_LR, timeout=300)
+    wall = time.perf_counter() - t0
+    # step 1's gradient in float64 from the same parameters and batch
+    p64 = tree_map(lambda t: t.double().requires_grad_(),
+                   init_params(0, cfg, device=dev))
+    TS._loss_fn(p64, cfg, TS.batch_to_device(batches[0], dev), torch.float64,
+                False).backward()
+    g64 = [np.zeros(tuple(p.shape)) if p.grad is None
+           else p.grad.cpu().numpy() for p in TS.tree_leaves(p64)]
+    names = TS.tree_leaves(tree_names(p64))
+    del p64
+
+    def norm_rel(a, b):
+        return float(np.linalg.norm(np.asarray(a, np.float64) - b)
+                     / max(np.linalg.norm(b), 1e-30))
+
+    for r, (losses, leaves, rep) in enumerate(ranks):
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                           one_losses))
+        # per leaf: |tp - f64| / |f64| (the gate) and |one - f64| / |f64|.
+        # The f64 gradient is the reference: one process's f32 gradient on
+        # the card sits 2.4-3.0e-4 of a leaf's norm from it (one post-net
+        # ReLU input within f32 rounding of 0 takes the other branch).
+        rows = sorted(((norm_rel(gt, g), norm_rel(go, g), n) for n, gt, go, g
+                       in zip(names, rep["grads"], one_rep["grads"], g64)),
+                      reverse=True)
+        bad = [row for row in rows if row[0] > 1e-4]
+        # the final parameters are printed, not gated: Adam's first steps
+        # move an element by about lr whatever its gradient's size, so an
+        # element whose gradient is within the two runs' difference of 0
+        # moves the other way; the losses of steps 2-4 hold the parameters
+        param_d, param_rel, param_leaf = max(
+            (float(np.abs(a - b).max()),
+             float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)), n)
+            for n, a, b in zip(names, leaves, one_params))
+        layout = tree_layout(rep["checkpoint"]) == tree_layout(
+            one_rep["checkpoint"])
+        phase("tp", f"rank {r} of (dp=1, tp=2) on {shard_dev}, default net, "
+                    f"f32, plain engine, B=1 T={T}, {TP_STEPS} steps: losses "
+                    f"{[round(x, 7) for x in losses]} against one process's "
+                    f"{[round(x, 7) for x in one_losses]} (max rel "
+                    f"{loss_rel:.2e}, tol 2e-5); step 1's gradients, |d| / "
+                    f"|f64| per leaf, the worst five (tp, one process): "
+                    + "; ".join(f"{n} {a:.2e} {b:.2e}" for a, b, n in rows[:5])
+                    + f"; tp leaves beyond 1e-4 of f64: {len(bad)}; final "
+                    f"parameters against one process's, the worst leaf "
+                    f"{param_leaf}: max |d| {param_d:.3e} = "
+                    f"{param_d / TP_LR:.3f} lr, max |d| / max |ref| "
+                    f"{param_rel:.2e} (not gated); W_cur shard "
+                    f"{rep['W_cur']}; the gathered checkpoint's layout "
+                    f"equal to one process's: {layout}")
+        check(loss_rel <= 2e-5, f"tp rank {r}: losses off by {loss_rel}")
+        check(not bad, f"tp rank {r}: gradients off f64: {bad}")
+        check(rep["W_cur"] == (cfg.n_resch, cfg.n_resch),
+              f"tp rank {r}: W_cur shard {rep['W_cur']} must hold 2R/2 "
+              f"columns")
+        check(layout, f"tp rank {r}: checkpoint layout")
+    ms = [float(np.median(rep["step_ms"][1:])) for _, _, rep in ranks]
+    phase("time", f"tp on one card (2 gloo ranks, T={T}): "
+                  f"{ms[0]:.3f} and {ms[1]:.3f} ms per step (median of "
+                  f"steps 2-{TP_STEPS}, host clock to the loss), one process "
+                  f"{float(np.median(one_rep['step_ms'][1:])):.3f} ms on the "
+                  f"same batches, phase 8's plain f32 step at T=30030 "
+                  f"{step_ms:.3f} ms; {wall:.3f} s for the two ranks with "
+                  f"start-up (bits, not speed) | {card}")
+    phase("tp", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def tree_layout(tree, prefix=""):
+    """{path: (shape, dtype)} of a checkpoint-like tree of arrays."""
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree) for k, v in
+                tree_layout(tree[key], f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, item in enumerate(tree) for k, v in
+                tree_layout(item, f"{prefix}/{i}").items()}
+    a = np.asarray(tree)
+    return {prefix: (a.shape, str(a.dtype))}
 
 
 if __name__ == "__main__":

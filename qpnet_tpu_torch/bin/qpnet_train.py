@@ -13,11 +13,14 @@ Data parallelism (parallel/): --n_devices N spawns N local ranks, one per
 card (cuda:0..N-1), or N CPU ranks with --device cpu.  --coordinator
 host:port --n_hosts H --host_id h (or QPNET_COORDINATOR / QPNET_NUM_HOSTS /
 QPNET_HOST_ID) joins a multi-host world with one rank per visible card of
-each host, or --n_devices CPU ranks.  --batch_size is the global batch and
-must divide over the ranks.  The launcher forwards SIGTERM to its ranks
-(each saves at the agreed iteration and exits) and fails if any rank
-fails.  --tp/--sp/--pp/--pp_microbatches and the orbax checkpoint backend
-are not ported (NotImplementedError).
+each host, or --n_devices CPU ranks.  --tp N shards the residual channels
+over tp groups of N consecutive ranks of a host, Megatron-style (plain
+engine only): one host runs max(--n_devices, N) ranks, a (dp = ranks / N,
+tp = N) mesh.  --batch_size is the global batch and must divide over dp.
+The launcher forwards SIGTERM to its ranks (each saves at the agreed
+iteration and exits) and fails if any rank fails.  --sp/--pp/
+--pp_microbatches and the orbax checkpoint backend are not ported
+(NotImplementedError).
 """
 
 from __future__ import annotations
@@ -74,7 +77,10 @@ def get_arguments(argv=None):
                         help="data-parallel ranks on this host, one per "
                              "card (batch_size must divide over all ranks)")
     parser.add_argument("--tp", default=1, type=int,
-                        help="tensor-parallel group size; only 1 is ported")
+                        help="tensor-parallel group size: the residual "
+                             "channels shard over a (dp = ranks / tp, tp) "
+                             "mesh (tp must divide the ranks of a host and "
+                             "n_resch)")
     parser.add_argument("--sp", default=1, type=int,
                         help="sequence-parallel group size; only 1 is "
                              "ported")
@@ -112,9 +118,9 @@ def get_arguments(argv=None):
 
 def check_ported(args) -> None:
     """Raise on argv that asks for what the port does not have yet."""
-    from qpnet_tpu_torch.parallel.mesh import PP, check_data_parallel
+    from qpnet_tpu_torch.parallel.mesh import PP, check_ported_axes
     from qpnet_tpu_torch.train.checkpoint import checkpoint_backend
-    check_data_parallel(args.tp, args.sp, args.pp)
+    check_ported_axes(args.sp, args.pp)
     if args.pp_microbatches:
         raise NotImplementedError(PP)
     checkpoint_backend()
@@ -123,19 +129,24 @@ def check_ported(args) -> None:
 def dp_layout(args):
     """(hosts, local_ranks): hosts is (coordinator, n_hosts, host_id) or
     None for one host.  A multi-host run takes one rank per visible card
-    (--device cuda) or --n_devices CPU ranks; one host, --n_devices ranks.
-    Raises ValueError when the cards are fewer than the ranks."""
+    (--device cuda) or max(--n_devices, --tp) CPU ranks; one host,
+    max(--n_devices, --tp) ranks, as the JAX CLI's mesh.  Raises
+    ValueError when the cards are fewer than the ranks, when tp does not
+    divide a host's ranks, or when batch_size does not divide over dp."""
     from qpnet_tpu_torch.parallel.distributed import resolve_multihost
     from qpnet_tpu_torch.parallel.mesh import make_mesh
     hosts = resolve_multihost(args.coordinator, args.n_hosts, args.host_id)
-    local = args.n_devices
+    local = max(args.n_devices, args.tp)
     if args.device == "cuda" and (hosts is not None or local > 1):
-        local = make_mesh(None if hosts else local, "cuda").size
-    if (hosts[1] if hosts else 1) * local > 1 \
-            and args.batch_size % ((hosts[1] if hosts else 1) * local):
+        local = make_mesh(None if hosts else local, "cuda", tp=args.tp).size
+    elif local % args.tp:
+        raise ValueError(f"tp={args.tp} must divide the {local} ranks of a "
+                         f"host")
+    dp = (hosts[1] if hosts else 1) * local // args.tp
+    if dp > 1 and args.batch_size % dp:
         raise ValueError(f"batch_size {args.batch_size} must divide over "
-                         f"the dp axis ({(hosts[1] if hosts else 1) * local} "
-                         f"ranks)")
+                         f"the dp axis ({dp} of {dp * args.tp} ranks at "
+                         f"tp={args.tp})")
     return hosts, local
 
 
@@ -186,7 +197,7 @@ def run_rank(local_rank: int, args, hosts, local_ranks: int,
     host_id, n_hosts = (hosts[2], hosts[1]) if hosts else (0, 1)
     device = f"cuda:{local_rank}" if args.device == "cuda" else "cpu"
     PD.init_world(init_method, host_id, n_hosts, local_rank, local_ranks,
-                  device)
+                  device, tp=args.tp)
     try:
         cfg, tcfg = build_configs(args)
         wav_list, feat_list = resolve_lists(args)

@@ -63,16 +63,15 @@ def _prime_activations(params: Params, cfg: ModelConfig, x_ctx: torch.Tensor,
     """Teacher-forced pass over the history context with products in
     `dtype` and f32 activations (the engines' step math); returns the layer
     inputs (causal output first), each (B, Tc, R)."""
-    R = cfg.n_resch
     f32 = torch.float32
     o = embed(params, x_ctx).to(f32)
     acts = [o]
     for p, dil in zip(params["fixed"], cfg.dilationsF):
-        o, _ = fixed_block(p, o, h_up_ctx, dil, R, dtype, act_dtype=f32)
+        o, _ = fixed_block(p, o, h_up_ctx, dil, dtype, f32)
         acts.append(o)
     for p, dil in zip(params["adaptive"], cfg.dilationsA):
-        o, _ = adaptive_block(p, o, h_up_ctx, round_look_back(d_ctx, dil), R,
-                              dtype, act_dtype=f32)
+        o, _ = adaptive_block(p, o, h_up_ctx, round_look_back(d_ctx, dil),
+                              dtype, f32)
         acts.append(o)
     return acts  # len = 1 + nF + nA; acts[i] is the input of layer i
 

@@ -8,6 +8,11 @@ entries are lists of per-block dicts.  Activations are channels-last
 sequences stay full-length and end-aligned, past samples shifted in with zero
 fill.
 
+`forward(tp=True)` is the tensor-parallel form, run by each rank of a tp
+group on its shard of the parameters (`train/step.py::shard_train_state`):
+the rank's R/tp residual channels, its gate columns paired as [s | t] of
+those channels.
+
 Precision: compute_dtype=float32 is the parity mode.  compute_dtype=bfloat16
 rounds every product's operands to bf16, accumulates in f32, and stores the
 per-block activations in bf16, while the skip sum and the logits stay f32 —
@@ -173,37 +178,57 @@ def _act_dtype(dtype):
     return torch.float32 if dtype == torch.float32 else dtype
 
 
-def fixed_block(p: Params, o: torch.Tensor, h_up: torch.Tensor, dil: int,
-                R: int, dtype, *, act_dtype=None):
-    """One fixed residual block; returns (o + res, skip)."""
-    act = act_dtype if act_dtype is not None else _act_dtype(dtype)
-    z = (_matmul(o, p["W_cur"], dtype, act)
-         + _matmul(shift_time(o, dil), p["W_prev"], dtype, act)
+def residual_block(p: Params, o: torch.Tensor, past_of, h_up: torch.Tensor,
+                   dtype, act, tp: bool = False):
+    """One residual block; returns (o + res, skip).  past_of(o) gives the
+    look-back rows of the block's input (its fixed or pitch-adaptive
+    dilation).  The skip and residual outputs are one product with
+    [W_skip | W_res].  With tp, p is this rank's shard (`train/step.py::
+    shard_train_state`): the input is copied to the tp group before the
+    gate products (its gradient summed over the group), the gate runs on
+    the rank's R/tp paired columns, and the partial skip and residual
+    products meet in one sum over the group, b_skip and b_res added once
+    after it."""
+    if tp:
+        from qpnet_tpu_torch.parallel.distributed import (copy_to_tp,
+                                                          reduce_from_tp)
+        oc = copy_to_tp(o)
+    else:
+        oc = o
+    z = (_matmul(oc, p["W_cur"], dtype, act)
+         + _matmul(past_of(oc), p["W_prev"], dtype, act)
          + _matmul(h_up, p["W_aux"], dtype, act)
          + p["b_gate"].to(act))
-    g = _gate(z, R)
-    skip = _matmul(g, p["W_skip"], dtype) + p["b_skip"]
-    res = _matmul(g, p["W_res"], dtype, act) + p["b_res"].to(act)
-    return o + res, skip
+    g = _gate(z, p["W_res"].shape[0])
+    S = p["W_skip"].shape[1]
+    out = _matmul(g, torch.cat([p["W_skip"], p["W_res"]], 1), dtype)
+    if tp:
+        out = reduce_from_tp(out)
+    return (o + (out[..., S:].to(act) + p["b_res"].to(act)),
+            out[..., :S] + p["b_skip"])
+
+
+def fixed_block(p: Params, o: torch.Tensor, h_up: torch.Tensor, dil: int,
+                dtype, act, tp: bool = False):
+    """One fixed residual block, looking back `dil` rows."""
+    return residual_block(p, o, lambda x: shift_time(x, dil), h_up, dtype,
+                          act, tp)
 
 
 def adaptive_block(p: Params, o: torch.Tensor, h_up: torch.Tensor,
-                   r: torch.Tensor, R: int, dtype, *, act_dtype=None):
+                   r: torch.Tensor, dtype, act, tp: bool = False):
     """One pitch-adaptive residual block.  r: (B, T) int look-back
     round(d(t) * dilation); the gather index t - r is clipped to [0, T-1]."""
+    return residual_block(p, o, lambda x: gather_past(x, r), h_up, dtype,
+                          act, tp)
+
+
+def gather_past(o: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """o[:, t - r] per row, the index clipped to [0, T-1]."""
     B, T, C = o.shape
-    act = act_dtype if act_dtype is not None else _act_dtype(dtype)
     t = torch.arange(T, device=o.device)[None, :]
     idx = torch.clamp(t - r, 0, T - 1).long()
-    past = torch.gather(o, 1, idx[..., None].expand(B, T, C))
-    z = (_matmul(o, p["W_cur"], dtype, act)
-         + _matmul(past, p["W_prev"], dtype, act)
-         + _matmul(h_up, p["W_aux"], dtype, act)
-         + p["b_gate"].to(act))
-    g = _gate(z, R)
-    skip = _matmul(g, p["W_skip"], dtype) + p["b_skip"]
-    res = _matmul(g, p["W_res"], dtype, act) + p["b_res"].to(act)
-    return o + res, skip
+    return torch.gather(o, 1, idx[..., None].expand(B, T, C))
 
 
 def round_look_back(d: torch.Tensor, dil: int) -> torch.Tensor:
@@ -234,7 +259,8 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
             compute_dtype=torch.float32,
             h_up: Optional[torch.Tensor] = None,
             remat: bool = False, fixed_engine: str = "xla",
-            maxd_bucket: Optional[int] = None) -> torch.Tensor:
+            maxd_bucket: Optional[int] = None,
+            tp: bool = False) -> torch.Tensor:
     """Teacher-forced forward over a full window.
 
     x: (B, T) int mu-law classes (end-aligned, history on the left);
@@ -250,7 +276,12 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     maxd_bucket: with "pallas", a bucket >= ceil(max d) also fuses the
     pitch-adaptive layers into the kernel; it needs frame-constant d (the
     training batcher's), read at frame rate as d[:, ::up].
-    Returns (B, T, n_quantize) f32 logits; logits[:, t] predicts x[t+1].
+    tp: params is this rank's shard of a tp group (plain engine only): the
+    embedding runs on the rank's R/tp channels and is gathered, the aux is
+    copied to every rank (its gradient summed over the group), and each
+    block is `residual_block`'s tp form.  The post-net is replicated.
+    Returns (B, T, n_quantize) f32 logits; logits[:, t] predicts x[t+1],
+    equal on every rank of a tp group.
     """
     if fixed_engine not in ("xla", "pallas"):
         raise ValueError("fixed_engine should be 'xla' or 'pallas'")
@@ -259,7 +290,12 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     if h_up is None:
         h_up = upsample_aux(params, h, cfg.upsampling_factor)
     h_up = h_up.to(act)
-    o = embed(params, x).to(act)
+    o = embed(params, x)
+    if tp:
+        from qpnet_tpu_torch.parallel.distributed import (copy_to_tp,
+                                                          gather_from_tp)
+        h_up, o = copy_to_tp(h_up), gather_from_tp(o)
+    o = o.to(act)
     skip_sum = torch.zeros(o.shape[:2] + (cfg.n_skipch,),
                            dtype=torch.float32, device=o.device)
     if remat:
@@ -292,11 +328,11 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
             list(zip(params["adaptive"], cfg.dilationsA))
     else:
         for p, dil in zip(params["fixed"], cfg.dilationsF):
-            o, skip = fblock(p, o, h_up, dil, R, compute_dtype)
+            o, skip = fblock(p, o, h_up, dil, compute_dtype, act, tp)
             skip_sum = skip_sum + skip
         adaptive_rest = list(zip(params["adaptive"], cfg.dilationsA))
     for p, dil in adaptive_rest:
-        o, skip = ablock(p, o, h_up, round_look_back(d, dil), R,
-                         compute_dtype)
+        o, skip = ablock(p, o, h_up, round_look_back(d, dil), compute_dtype,
+                         act, tp)
         skip_sum = skip_sum + skip
     return postprocess(params, skip_sum, compute_dtype)

@@ -1,5 +1,6 @@
-"""Data parallelism over torch.distributed: the dp mesh, the multi-host
-world and the dp dryrun (ROADMAP.md, Queue 1: tp, sp and pp follow)."""
+"""Data and tensor parallelism over torch.distributed: the (dp, tp) mesh,
+the multi-host world with its dp and tp groups, and the dryrun (ROADMAP.md,
+Queue 1: sp and pp follow)."""
 
 from qpnet_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh, make_mesh, shard_batch,

@@ -1,13 +1,22 @@
 """Processes that train as one: the port's counterpart of
 `qpnet_tpu/parallel/distributed.py`, over torch.distributed.
 
-A dp world is `n_hosts` hosts with `local_ranks` ranks each, one process
-per rank and one device per process: rank = host_id * local_ranks +
+A world is `n_hosts` hosts with `local_ranks` ranks each, one process per
+rank and one device per process: rank = host_id * local_ranks +
 local_rank.  As in JAX, `process_index()` and `process_count()` count
 hosts: each host reads its slice of the corpus (`host_shard_list`) and
 batches it, and each of its ranks takes its rows of the host's batch
 (`make_global_batch`).  So the global batch of an iteration is the JAX
 package's for the same argv and corpus.
+
+With tp > 1 the world is a (dp, tp) mesh (`mesh.Mesh`): the tp ranks of
+one dp index are consecutive, on one host, and share that dp index's
+rows.  Two families of subgroups are opened: the dp groups (one per tp
+index), over which the gradients of each shard are averaged, and the tp
+groups (one per dp index), which carry the activations of the tensor-
+parallel forward and backward (`copy_to_tp`, `reduce_from_tp`,
+`gather_from_tp`: the collectives GSPMD inserts in JAX, written out as
+autograd functions, Megatron-style).
 
 Every world opens a gloo group (the default group): it carries the control
 scalars of each step (valid_len and the preemption flag,
@@ -40,14 +49,17 @@ from qpnet_tpu_torch.parallel.mesh import Mesh, shard_rows, take
 
 @dataclass
 class World:
-    """This process's place in the dp world, and its gradient group."""
+    """This process's place in the world, and its groups."""
     host_id: int
     n_hosts: int
     local_rank: int
     local_ranks: int
     devices: List[torch.device]    # each rank's device, as its host names it
     grad_backend: str              # "nccl" or "gloo"
-    grad_group: Any = None         # None: the default (gloo) group
+    grad_group: Any = None         # this rank's dp group; None: the world
+    tp: int = 1
+    tp_group: Any = None           # this rank's tp group (tp > 1)
+    dp_control: Any = None         # its dp group over gloo (tp > 1)
     reduce_seconds: float = 0.0    # host clock over the all-reduces (gloo
                                    # waits for them; NCCL's only enqueue)
     reduces: int = 0
@@ -59,6 +71,18 @@ class World:
     @property
     def size(self) -> int:
         return self.n_hosts * self.local_ranks
+
+    @property
+    def dp(self) -> int:
+        return self.size // self.tp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
 
     @property
     def device(self) -> torch.device:
@@ -94,13 +118,32 @@ def _card_id(device: torch.device) -> Optional[str]:
     return str(torch.cuda.get_device_properties(device).uuid)
 
 
+def _dp_groups(size: int, tp: int, backend: str):
+    """Every dp group (the ranks of one tp index), opened in the same order
+    on every rank, as new_group requires."""
+    return [dist.new_group([i * tp + j for i in range(size // tp)],
+                           backend=backend) for j in range(tp)]
+
+
+def _tp_groups(size: int, tp: int, backend: str):
+    """Every tp group (the ranks of one dp index), in the same order on
+    every rank."""
+    return [dist.new_group(list(range(i * tp, (i + 1) * tp)),
+                           backend=backend) for i in range(size // tp)]
+
+
 def init_world(init_method: str, host_id: int, n_hosts: int,
-               local_rank: int, local_ranks: int, device) -> World:
-    """Join the dp world at `init_method` (tcp://host:port, or file://path
-    for ranks of one host) and choose the gradients' backend."""
+               local_rank: int, local_ranks: int, device,
+               tp: int = 1) -> World:
+    """Join the world at `init_method` (tcp://host:port, or file://path
+    for ranks of one host), choose the gradients' backend and, with tp > 1,
+    open the dp and tp groups."""
     global _world
     if _world is not None:
         raise RuntimeError("this process already belongs to a dp world")
+    if tp < 1 or local_ranks % tp:
+        raise ValueError(f"tp={tp} must divide the {local_ranks} ranks of a "
+                         f"host: a tp group stays on one host")
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -116,18 +159,26 @@ def init_world(init_method: str, host_id: int, n_hosts: int,
     distinct = on_cards and len(set(cards)) == size
     if distinct and dist.is_nccl_available():
         backend, why = "nccl", "each rank owns a distinct card"
-        group = dist.new_group(backend="nccl")
     else:
-        backend, group = "gloo", None
+        backend = "gloo"
         why = ("the ranks run on the CPU" if not on_cards else
                "the ranks share a card" if not distinct else
                "this torch has no NCCL")
+    group = tp_group = dp_control = None
+    if tp > 1:
+        group = _dp_groups(size, tp, backend)[rank % tp]
+        tp_group = _tp_groups(size, tp, backend)[rank // tp]
+        dp_control = (group if backend == "gloo"
+                      else _dp_groups(size, tp, "gloo")[rank % tp])
+    elif backend == "nccl":
+        group = dist.new_group(backend="nccl")
     _world = World(host_id, n_hosts, local_rank, local_ranks,
-                   [torch.device(d) for _, _, d in peers], backend, group)
-    logging.info("dp world: rank %d of %d (host %d of %d, local rank %d of "
-                 "%d) on %s; gradient all-reduce over %s (%s)", rank, size,
-                 host_id, n_hosts, local_rank, local_ranks, device, backend,
-                 why)
+                   [torch.device(d) for _, _, d in peers], backend, group,
+                   tp, tp_group, dp_control)
+    logging.info("world: rank %d of %d (host %d of %d, local rank %d of "
+                 "%d) on %s, mesh dp=%d tp=%d; gradient all-reduce over %s "
+                 "(%s)", rank, size, host_id, n_hosts, local_rank,
+                 local_ranks, device, size // tp, tp, backend, why)
     return _world
 
 
@@ -157,18 +208,19 @@ def shutdown() -> None:
 
 
 def rank_mesh() -> Mesh:
-    """The dp mesh of the world, one device per rank, at this rank."""
+    """The (dp, tp) mesh of the world, one device per rank, at this
+    rank."""
     if _world is None:
         raise RuntimeError("no dp world: call init_world or "
                            "initialize_multihost first")
-    return Mesh(_world.devices, rank=_world.rank)
+    return Mesh(_world.devices, rank=_world.rank, tp=_world.tp)
 
 
 def require_world(mesh: Mesh) -> World:
     """The world a process-spanning mesh stands for; raise if there is none
     or it does not match."""
     if mesh.rank is None or _world is None or _world.size != mesh.size \
-            or _world.rank != mesh.rank:
+            or _world.rank != mesh.rank or _world.tp != mesh.tp:
         raise ValueError(
             f"{mesh} does not span this process's dp world "
             f"({'none' if _world is None else _world.size} ranks): dp "
@@ -192,20 +244,24 @@ def host_shard_list(items: Sequence) -> list:
 
 def make_global_batch(mesh: Mesh, tree: dict) -> dict:
     """This rank's rows of its host's batch (a dict of arrays with the batch
-    first; scalars pass through), as tensors on its device."""
+    first; scalars pass through), as tensors on its device: the host's
+    rows split over its dp indices, the same rows for every rank of a tp
+    group."""
     w = require_world(mesh)
     n = {np.shape(v)[0] for v in tree.values() if np.ndim(v) > 0}
     if len(n) != 1:
         raise ValueError(f"batch entries disagree on the batch size: {n}")
-    rows = shard_rows(n.pop(), w.local_ranks)[w.local_rank]
+    rows = shard_rows(n.pop(), w.local_ranks // w.tp)[w.local_rank // w.tp]
     return {k: take(v, rows, w.device) for k, v in tree.items()}
 
 
-def _gather(values, dtype=np.int64) -> np.ndarray:
-    """(size, len(values)) of every rank's values, over the gloo group."""
+def _gather(values, dtype=np.int64, group=None) -> np.ndarray:
+    """(ranks, len(values)) of every rank's values in `group` (default:
+    the world), over gloo."""
     mine = torch.as_tensor(np.asarray(values, dtype).reshape(-1))
-    out = [torch.empty_like(mine) for _ in range(_world.size)]
-    dist.all_gather(out, mine)
+    out = [torch.empty_like(mine)
+           for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, mine, group=group)
     return torch.stack(out).numpy()
 
 
@@ -230,23 +286,26 @@ def global_min_scalar(value) -> np.ndarray:
 
 
 def all_reduce_mean_(flat: torch.Tensor) -> torch.Tensor:
-    """Replace `flat` by its mean over the ranks, in place, over the
-    gradient group (NCCL, or gloo)."""
+    """Replace `flat` by its mean over this rank's dp group (the world when
+    tp = 1), in place, over the gradient group (NCCL, or gloo)."""
     w = _world
     t0 = time.perf_counter()
-    dist.all_reduce(flat, group=w.grad_group)
-    flat.div_(w.size)
+    if w.dp > 1:
+        dist.all_reduce(flat, group=w.grad_group)
+        flat.div_(w.dp)
     w.reduce_seconds += time.perf_counter() - t0
     w.reduces += 1
     return flat
 
 
-def check_agreed(value, what: str) -> np.ndarray:
-    """Every rank's value of a float scalar; raise unless they are all
-    equal (a no-op outside a world)."""
+def check_agreed(value, what: str, dp_only: bool = False) -> np.ndarray:
+    """Every rank's value of a float scalar (with dp_only, every rank of
+    this rank's dp group); raise unless they are all equal (a no-op
+    outside a world)."""
     if _world is None:
         return np.asarray([value], np.float64)
-    got = _gather([value], np.float64)[:, 0]
+    got = _gather([value], np.float64,
+                  _world.dp_control if dp_only else None)[:, 0]
     if not (got == got[0]).all():
         raise RuntimeError(f"the ranks disagree on {what}: {got.tolist()}")
     return got
@@ -262,3 +321,74 @@ def broadcast_(leaves: Sequence[torch.Tensor]) -> None:
         for t in leaves:
             t.copy_(flat[off:off + t.numel()].view(t.shape))
             off += t.numel()
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel collectives (over this rank's tp group)
+# ---------------------------------------------------------------------------
+
+def _tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=_world.tp_group)
+    return out
+
+
+class _CopyToTp(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the tp group
+    (the input is replicated, and each rank's products reach only its
+    slice of the channels)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_all_reduce(g)
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    """Sum over the tp group forward (row-parallel partial products);
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _tp_all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _GatherFromTp(torch.autograd.Function):
+    """Every rank's slice of the last axis, concatenated in tp order;
+    the backward keeps this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.width = x.shape[-1]
+        return torch.cat(tp_all_gather(x), -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = _world.tp_rank
+        return g[..., k * ctx.width:(k + 1) * ctx.width].contiguous()
+
+
+def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
+    return _CopyToTp.apply(x)
+
+
+def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
+    return _ReduceFromTp.apply(x)
+
+
+def gather_from_tp(x: torch.Tensor) -> torch.Tensor:
+    return _GatherFromTp.apply(x)
+
+
+def tp_all_gather(x: torch.Tensor) -> List[torch.Tensor]:
+    """Every tp rank's tensor of x's shape, in tp order (no autograd)."""
+    parts = [torch.empty_like(x) for _ in range(_world.tp)]
+    dist.all_gather(parts, x.contiguous(), group=_world.tp_group)
+    return parts

@@ -1,5 +1,6 @@
-"""The data-parallel mesh: an ordered list of torch devices over one "dp"
-axis, the port's counterpart of `qpnet_tpu/parallel/mesh.py`.
+"""The training and decode mesh: an ordered list of torch devices over a
+"dp" axis and, in training, a "tp" axis; the port's counterpart of
+`qpnet_tpu/parallel/mesh.py`.
 
 JAX shards arrays over a `jax.sharding.Mesh` and lets GSPMD insert the
 collectives.  The port names a device per shard instead: decode runs one
@@ -9,8 +10,12 @@ one process per rank (`parallel/distributed.py`), whose gradients meet in
 one all-reduce a step (`train/step.py`).  Batches shard over dp and
 parameters are replicated, as in JAX.
 
-Only the dp axis is ported: tp, sp and pp raise NotImplementedError naming
-their ROADMAP.md items.
+A tp axis (training only) has shape (dp = n / tp, tp): rank r sits at
+(r // tp, r % tp), so a tp group is tp consecutive ranks, which stay on
+one host.  Its ranks share the batch rows of their dp index and hold
+slices of the residual channels (`train/step.py::param_sharding_tree`).
+sp and pp are not ported: they raise NotImplementedError naming their
+ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -20,23 +25,22 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-TP = ("tensor parallelism (tp) is not ported yet: ROADMAP.md, Queue 1 "
-      "item 10")
 SP = ("sequence parallelism (sp) is not ported yet: ROADMAP.md, Queue 1 "
       "item 11")
 PP = ("pipeline parallelism (pp, GPipe microbatches) is not ported yet: "
       "ROADMAP.md, Queue 1 item 12")
 
 
-def check_data_parallel(tp: int = 1, sp: int = 1, pp: int = 1) -> None:
-    """Raise NotImplementedError for a model-parallel axis of size > 1."""
-    for size, msg in ((tp, TP), (sp, SP), (pp, PP)):
+def check_ported_axes(sp: int = 1, pp: int = 1) -> None:
+    """Raise NotImplementedError for an sp or pp axis of size > 1."""
+    for size, msg in ((sp, SP), (pp, PP)):
         if size and size > 1:
             raise NotImplementedError(msg)
 
 
 class Mesh:
-    """A dp mesh over `devices`, in shard order.
+    """A (dp, tp) mesh over `devices`, in rank order; tp = 1 is the dp
+    mesh.
 
     A device may appear more than once: its shards then share it, as the
     JAX package's virtual CPU devices share one host (`Mesh(["cpu"] * 4)`
@@ -44,36 +48,53 @@ class Mesh:
     `make_mesh` takes distinct CUDA devices.  `rank` is this process's
     shard when the mesh spans processes (training, one rank each:
     `distributed.rank_mesh`), and None when one process drives every
-    shard (decode)."""
+    shard (decode, dp only)."""
 
-    axis_names = ("dp",)
-
-    def __init__(self, devices: Sequence, rank: Optional[int] = None):
+    def __init__(self, devices: Sequence, rank: Optional[int] = None,
+                 tp: int = 1):
         self.devices: List[torch.device] = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
         if rank is not None and not 0 <= rank < len(self.devices):
             raise ValueError(f"rank {rank} outside a {len(self.devices)}-"
                              f"device mesh")
-        self.rank = rank
+        if tp < 1 or len(self.devices) % tp:
+            raise ValueError(f"tp={tp} must divide the "
+                             f"{len(self.devices)}-device mesh")
+        self.rank, self.tp = rank, int(tp)
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def dp(self) -> int:
+        return self.size // self.tp
+
+    @property
+    def axis_names(self) -> tuple:
+        return ("dp", "tp") if self.tp > 1 else ("dp",)
+
+    @property
+    def shape(self) -> dict:
+        return {"dp": self.dp, "tp": self.tp} if self.tp > 1 else \
+            {"dp": self.dp}
+
     def __repr__(self) -> str:
         names = [str(d) for d in self.devices]
-        return (f"Mesh(dp={self.size}, devices={names}"
+        axes = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return (f"Mesh({axes}, devices={names}"
                 + ("" if self.rank is None else f", rank={self.rank}") + ")")
 
 
 def make_mesh(n_devices: Optional[int] = None, device="cuda",
               tp: int = 1, sp: int = 1, pp: int = 1) -> Mesh:
-    """A dp mesh over the first `n_devices` distinct devices of type
-    `device` (default: all of them).  Fewer than asked for raises: a
-    silently truncated mesh would hide wrong sharding.  The CPU is one
-    device; a mesh of CPU shards is built with `Mesh` directly."""
-    check_data_parallel(tp, sp, pp)
+    """A (dp = n / tp, tp) mesh over the first `n_devices` distinct devices
+    of type `device` (default: all of them).  Fewer than asked for raises:
+    a silently truncated mesh would hide wrong sharding; so does a tp that
+    does not divide them.  The CPU is one device; a mesh of CPU shards is
+    built with `Mesh` directly."""
+    check_ported_axes(sp, pp)
     kind = torch.device(device).type
     if kind == "cuda":
         avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -91,7 +112,10 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda",
         names = names[:n_devices]
     if not names:
         raise ValueError(f"make_mesh: no {kind} device is available")
-    return Mesh(names)
+    if len(names) % tp:
+        raise ValueError(f"make_mesh: tp={tp} must divide the "
+                         f"{len(names)}-device mesh")
+    return Mesh(names, tp=tp)
 
 
 def shard_rows(n_rows: int, n_shards: int) -> List[slice]:

@@ -15,9 +15,16 @@ masked loss of its own rows; the gradients and the loss then meet in one
 all-reduce of one flattened buffer, in the parameter tree's fixed order, and
 every rank takes their mean before Adam steps.  The rows and T are equal per
 rank and valid_len is agreed over the ranks, so the mean of the local losses
-is the global batch's loss, as in the JAX package's GSPMD step.  Tensor,
-sequence and pipeline parallelism (and GPipe microbatches) are not ported:
-ROADMAP.md, Queue 1 items 10-12.
+is the global batch's loss, as in the JAX package's GSPMD step.
+
+Under a (dp, tp) mesh each rank holds its shard of the parameters and of
+Adam's moments (`param_sharding_tree`, `shard_train_state`) and runs
+`models/qpnet.py::forward(tp=True)`, whose collectives over the tp group take
+the place of the ones GSPMD inserts in JAX; the gradients of each shard are
+then averaged over its dp group only, since the shards differ from tp rank
+to tp rank.  The tp forward is the plain engine: K2 runs the whole width.
+Sequence and pipeline parallelism (and GPipe microbatches) are not ported:
+ROADMAP.md, Queue 1 items 11-12.
 """
 
 from __future__ import annotations
@@ -31,6 +38,10 @@ import torch.nn.functional as F
 from qpnet_tpu_torch.config import ModelConfig
 from qpnet_tpu_torch.models.qpnet import Params, forward, tree_map
 from qpnet_tpu_torch.parallel.mesh import PP
+
+# the gate's leaves: their 2R axis holds [s | t], and a tp shard takes the
+# same R/tp channels of both halves
+GATE_KEYS = ("W_cur", "W_prev", "W_aux", "b_gate")
 
 
 class TrainState(NamedTuple):
@@ -54,6 +65,12 @@ class Adam:
 
     def __init__(self, lr: float = 1e-4, weight_decay: float = 0.0):
         self.lr, self.weight_decay = float(lr), float(weight_decay)
+
+    @classmethod
+    def of(cls, opt: torch.optim.Adam) -> "Adam":
+        """The settings an Adam made by `init` was made with."""
+        group = opt.param_groups[0]
+        return cls(group["lr"], group["weight_decay"])
 
     def init(self, params: Params) -> torch.optim.Adam:
         leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
@@ -106,6 +123,150 @@ def load_optimizer_state(opt: torch.optim.Optimizer, params: Params,
         }
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the layout of a rank's shard
+# ---------------------------------------------------------------------------
+
+def param_sharding_tree(mesh, params: Params):
+    """Each parameter leaf's sharded axis under the mesh's tp axis, or None
+    for a replicated leaf (every leaf when tp = 1): the JAX package's
+    layout (`qpnet_tpu/train/step.py::param_sharding_tree`).  The gate
+    projections W_cur, W_prev, W_aux and b_gate are column-parallel over
+    the 2R axis, with each rank's columns paired (`shard_leaf`); W_skip and
+    W_res row-parallel over their R input rows; the causal embeddings and
+    b_causal over R; the upsampler, the post-net, b_skip and b_res
+    replicated.  Raises ValueError unless tp divides n_resch."""
+    tp = getattr(mesh, "tp", 1)
+    if tp > 1:
+        R = (list(params["fixed"])
+             + list(params["adaptive"]))[0]["W_res"].shape[0]
+        if R % tp:
+            raise ValueError(f"tp={tp} must divide n_resch={R}")
+    return sharded_axes(mesh, params)
+
+
+def sharded_axes(mesh, tree):
+    """`param_sharding_tree` without its check: the layout of any tree in
+    the parameters' layout, whole or one rank's shard."""
+    if getattr(mesh, "tp", 1) == 1:
+        return tree_map(lambda _: None, tree)
+
+    def block(_):
+        return {"W_cur": 1, "W_prev": 1, "W_aux": 1, "b_gate": 0,
+                "W_skip": 0, "b_skip": None, "W_res": 0, "b_res": None}
+
+    return {
+        "embed_prev": 1, "embed_cur": 1, "b_causal": 0, "up_w": None,
+        "up_b": None, "fixed": [block(b) for b in tree["fixed"]],
+        "adaptive": [block(b) for b in tree["adaptive"]],
+        "W_post1": None, "b_post1": None, "W_post2": None, "b_post2": None,
+    }
+
+
+def map_sharded(fn, tree, spec, key=None):
+    """fn(leaf, axis, paired) over a parameter tree (or a tree in its
+    layout) and its `param_sharding_tree`; paired marks the gate's
+    leaves."""
+    if isinstance(tree, dict):
+        return {k: map_sharded(fn, tree[k], spec[k], k) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return [map_sharded(fn, t, s, key) for t, s in zip(tree, spec)]
+    return fn(tree, spec, key in GATE_KEYS)
+
+
+def shard_leaf(t: torch.Tensor, axis, paired: bool, k: int,
+               tp: int) -> torch.Tensor:
+    """Rank k's slice of a whole leaf, as a new contiguous tensor: the
+    k-th of tp equal blocks of the axis or, for a gate leaf, the k-th
+    block of each half of its 2R axis (columns [kR/tp, (k+1)R/tp) and R +
+    the same), so that a rank holds s and t of the same channels."""
+    t = t.detach()
+    if axis is None:
+        return t.clone()
+    n = t.shape[axis]
+    if paired:
+        half, w = n // 2, n // 2 // tp
+        return torch.cat([t.narrow(axis, k * w, w),
+                          t.narrow(axis, half + k * w, w)], axis)
+    w = n // tp
+    return t.narrow(axis, k * w, w).clone(
+        memory_format=torch.contiguous_format)
+
+
+def unshard_leaf(parts, axis, paired: bool) -> torch.Tensor:
+    """The whole leaf from every rank's slice, in tp order (the JAX
+    layout: a gate leaf's halves un-paired)."""
+    if axis is None:
+        return parts[0]
+    if paired:
+        w = parts[0].shape[axis] // 2
+        return torch.cat([p.narrow(axis, 0, w) for p in parts]
+                         + [p.narrow(axis, w, w) for p in parts], axis)
+    return torch.cat(list(parts), axis)
+
+
+def shard_train_state(mesh, state: "TrainState") -> "TrainState":
+    """This rank's shard of a whole TrainState under the mesh's tp axis:
+    its slice of every sharded parameter, and a new Adam (the same
+    settings) over the slices whose moments and step count are the same
+    slices of the old one's.  The state unchanged when tp = 1."""
+    if getattr(mesh, "tp", 1) == 1:
+        return state
+    from qpnet_tpu_torch.parallel.distributed import require_world
+    w = require_world(mesh)
+    old = state.opt_state
+    moments = []
+
+    def cut(p, axis, paired):
+        new = shard_leaf(p, axis, paired, w.tp_rank, w.tp)
+        st = old.state.get(p)
+        if st:
+            moments.append((new, {
+                "step": st["step"].clone(),
+                "exp_avg": shard_leaf(st["exp_avg"], axis, paired,
+                                      w.tp_rank, w.tp),
+                "exp_avg_sq": shard_leaf(st["exp_avg_sq"], axis, paired,
+                                         w.tp_rank, w.tp)}))
+        return new
+
+    params = map_sharded(cut, state.params,
+                         param_sharding_tree(mesh, state.params))
+    opt = Adam.of(old).init(params)
+    for p, st in moments:
+        opt.state[p] = st
+    return TrainState(params, opt, state.iterations)
+
+
+def gather_params(mesh, tree):
+    """The whole tree (the JAX layout) from every tp rank's shard of a
+    tree in the parameters' layout (the parameters, their gradients or
+    Adam's moments): an all-gather over the tp group for each sharded
+    leaf.  Every rank of the tp group must call it; the tree unchanged
+    when tp = 1."""
+    if getattr(mesh, "tp", 1) == 1:
+        return tree
+    from qpnet_tpu_torch.parallel.distributed import tp_all_gather
+    return map_sharded(
+        lambda t, axis, paired: t if axis is None else
+        unshard_leaf(tp_all_gather(t.detach()), axis, paired), tree,
+        sharded_axes(mesh, tree))
+
+
+def full_optimizer_state(mesh, opt: torch.optim.Optimizer,
+                         params: Params) -> dict:
+    """`optimizer_state` (numpy trees) in the JAX layout: under tp the
+    moments of every rank's shard, gathered (a collective over the tp
+    group)."""
+    local = optimizer_state(opt, params)
+    if getattr(mesh, "tp", 1) == 1:
+        return local
+    dev = tree_leaves(params)[0].device
+    return {"count": local["count"], **{
+        k: tree_map(lambda t: t.cpu().numpy(), gather_params(mesh, tree_map(
+            lambda a: torch.from_numpy(a).to(dev), local[k])))
+        for k in ("mu", "nu")}}
+
+
 def masked_ce_loss(logits: torch.Tensor, targets: torch.Tensor,
                    valid_len) -> torch.Tensor:
     """Mean cross-entropy over the last `valid_len` positions of each
@@ -128,10 +289,11 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 def _loss_fn(params, cfg, batch, compute_dtype, remat, fixed_engine="xla",
-             maxd_bucket=None):
+             maxd_bucket=None, tp=False):
     logits = forward(params, cfg, batch["x"], batch["h"], batch["d"],
                      compute_dtype=compute_dtype, remat=remat,
-                     fixed_engine=fixed_engine, maxd_bucket=maxd_bucket)
+                     fixed_engine=fixed_engine, maxd_bucket=maxd_bucket,
+                     tp=tp)
     return masked_ce_loss(logits, batch["t"], batch["valid_len"])
 
 
@@ -156,7 +318,9 @@ def make_train_step(cfg: ModelConfig, tx: Adam, mesh: Optional[Any] = None,
     parameters are updated in place by the optimizer held in the state;
     the loss is returned as a device tensor (no host sync on one device;
     under a mesh, the global loss after the all-reduce).  fixed_engine
-    "auto" resolves to "xla"; "pallas" runs K2 on each rank's rows.
+    "auto" resolves to "xla"; "pallas" runs K2 on each rank's rows.  Under
+    a tp mesh the state is this rank's shard (`shard_train_state`), the
+    forward is `forward(tp=True)`, and "pallas" raises ValueError.
     """
     if n_microbatches:
         raise NotImplementedError(PP)
@@ -164,6 +328,13 @@ def make_train_step(cfg: ModelConfig, tx: Adam, mesh: Optional[Any] = None,
     if mesh is not None:
         from qpnet_tpu_torch.parallel.distributed import require_world
         world = require_world(mesh)
+    tp = world is not None and world.tp > 1
+    if tp and fixed_engine == "pallas":
+        raise ValueError(
+            f"fixed_engine='pallas' runs the fused training kernel over the "
+            f"whole residual width, and under tp={world.tp} a rank holds "
+            f"n_resch/{world.tp} channels: use 'auto' or 'xla' (the plain "
+            f"engine, as the JAX package runs under a mesh)")
 
     def step(state: TrainState, batch, maxd_bucket=None):
         B, T = batch["x"].shape
@@ -171,7 +342,8 @@ def make_train_step(cfg: ModelConfig, tx: Adam, mesh: Optional[Any] = None,
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         loss = _loss_fn(state.params, cfg, batch, compute_dtype, remat,
-                        engine, maxd_bucket if engine == "pallas" else None)
+                        engine, maxd_bucket if engine == "pallas" else None,
+                        tp)
         loss.backward()
         for p in tree_leaves(state.params):
             # a leaf no output depends on (the last block's W_res) gets a
@@ -188,8 +360,8 @@ def make_train_step(cfg: ModelConfig, tx: Adam, mesh: Optional[Any] = None,
 
 
 def _all_reduce_mean(leaves, loss: torch.Tensor) -> torch.Tensor:
-    """Average the leaves' gradients and the loss over the ranks in one
-    all-reduce of one buffer: [grads in leaf order, loss]."""
+    """Average the leaves' gradients and the loss over this rank's dp
+    group in one all-reduce of one buffer: [grads in leaf order, loss]."""
     from qpnet_tpu_torch.parallel.distributed import all_reduce_mean_
     flat = torch.cat([p.grad.reshape(-1) for p in leaves]
                      + [loss.detach().reshape(1).to(leaves[0].grad.dtype)])

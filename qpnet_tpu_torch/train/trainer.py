@@ -17,7 +17,11 @@ each of its ranks trains on its rows of that batch; the replicas start from
 rank 0's parameters; the step's valid_len gather carries the preemption
 flag, so every rank stops at the same iteration; only the lead rank writes
 checkpoints and the loss record; at the end the ranks check that their
-parameters agree.
+parameters agree.  Under a (dp, tp) mesh the ranks of a tp group share
+their dp index's rows; the state is sharded after init, resume or
+pretrain (`train/step.py::shard_train_state`), and each checkpoint gathers
+the shards of the lead's tp group into the JAX layout, so it loads in
+either package at any tp.
 """
 
 from __future__ import annotations
@@ -43,9 +47,12 @@ from qpnet_tpu_torch.train.checkpoint import (adam_state_from_optax,
                                               save_checkpoint, save_final)
 from qpnet_tpu_torch.parallel.mesh import PP
 from qpnet_tpu_torch.train.step import (TrainState, batch_to_device,
+                                        full_optimizer_state, gather_params,
                                         load_optimizer_state, make_optimizer,
-                                        make_train_step, optimizer_state,
-                                        resolve_fixed_engine, tree_leaves)
+                                        make_train_step,
+                                        resolve_fixed_engine,
+                                        shard_train_state, sharded_axes,
+                                        tree_leaves)
 from qpnet_tpu_torch.utils.yamlconf import read_loss_record, write_loss_record
 
 
@@ -109,7 +116,8 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig,
                  n_microbatches: Optional[int] = None,
                  device="cuda") -> TrainState:
     """Train on the wav/h5 pairs of two lists (see `train_loop`).  Under a
-    dp mesh each host batches its slice of the lists (module docstring)."""
+    mesh each host batches its slice of the lists (module docstring);
+    batch_size divides over dp = ranks / tp."""
     if n_microbatches:
         raise NotImplementedError(PP)
     from qpnet_tpu_torch.data.stats import load_scaler
@@ -117,16 +125,17 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig,
     if mesh is not None:
         from qpnet_tpu_torch.parallel import distributed as PD
         w = PD.require_world(mesh)
-        if tcfg.batch_size % w.size:
+        if tcfg.batch_size % w.dp:
             raise ValueError(f"global batch_size {tcfg.batch_size} must "
-                             f"divide over the {w.size} dp ranks")
+                             f"divide over the dp axis ({w.dp} of "
+                             f"{w.size} ranks at tp={w.tp})")
         local_bs = tcfg.batch_size // w.n_hosts
         wav_list = PD.host_shard_list(wav_list)
         feat_list = PD.host_shard_list(feat_list)
         seed = tcfg.seed + PD.process_index()
         logging.info("host %d/%d: %d utterances, host batch %d over %d "
-                     "ranks", w.host_id, w.n_hosts, len(wav_list), local_bs,
-                     w.local_ranks)
+                     "ranks (tp=%d)", w.host_id, w.n_hosts, len(wav_list),
+                     local_bs, w.local_ranks, w.tp)
     scaler = load_scaler(stats_path, feature_type)
     batches = background(2)(train_window_generator)(
         wav_list, feat_list, cfg, feat_transform=scaler.transform,
@@ -143,8 +152,9 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
                device="cuda", mesh=None) -> TrainState:
     """Run iterations up to `tcfg.iters` over the batcher's numpy batches;
     returns the final state (parameters and optimizer on `device`).  Under
-    a dp mesh the batches are this rank's host's, the device is the
-    rank's, and `tcfg.batch_size` is the global batch."""
+    a mesh the batches are this rank's host's, the device is the rank's,
+    `tcfg.batch_size` is the global batch, and under tp the returned state
+    is this rank's shard."""
     world = None
     if mesh is not None:
         from qpnet_tpu_torch.parallel import distributed as PD
@@ -152,6 +162,9 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
         device = world.device
     device = resolve_device(device)
     is_lead = world is None or world.rank == 0
+    # the ranks that take part in writing a checkpoint: the lead's tp
+    # group gathers the shards
+    writes = world is None or world.dp_rank == 0
     checkpoint_backend()
     os.makedirs(expdir, exist_ok=True)
     np.random.seed(tcfg.seed)
@@ -164,7 +177,7 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
     # activations get large (the JAX package's thresholds)
     T = padded_shape(tcfg.max_length, cfg.upsampling_factor)
     remat_threshold = 130_000 if compute_dtype == torch.float32 else 260_000
-    per_rank = max(1, tcfg.batch_size // (mesh.size if mesh else 1))
+    per_rank = max(1, tcfg.batch_size // (mesh.dp if mesh else 1))
     remat = per_rank * T > remat_threshold
     if compute_dtype == torch.bfloat16:
         logging.info("mixed precision: bf16 products/activations, "
@@ -211,6 +224,11 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
         PD.check_agreed(iterations, "the iteration to start from")
         PD.broadcast_(tree_leaves(params))
     state = TrainState(params, opt, iterations)
+    if world is not None and world.tp > 1:
+        state = shard_train_state(mesh, state)
+        logging.info("tensor parallel: residual channels sharded over "
+                     "tp=%d (%d of %d per rank)", world.tp,
+                     cfg.n_resch // world.tp, cfg.n_resch)
 
     def maxd_bucket(d_np):
         """The adaptive layers fuse into the kernel only on request
@@ -223,8 +241,12 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
         return int(bucket_maxd(float(np.ceil(d_np.max()))))
 
     def save(it):
-        save_checkpoint(expdir, state.params,
-                        optimizer_state(state.opt_state, state.params), it)
+        """The lead writes checkpoint-<it>; under tp the lead's tp group
+        gathers the shards first (every rank of it calls save)."""
+        params = gather_params(mesh, state.params)
+        opt_state = full_optimizer_state(mesh, state.opt_state, state.params)
+        if is_lead:
+            save_checkpoint(expdir, params, opt_state, it)
 
     # losses stay on the device until the logging interval
     pending = []
@@ -264,13 +286,14 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
                 loss_record.append(avg)
                 pending = []
             saved_here = (i + 1) % tcfg.checkpoint_interval == 0
-            if saved_here and is_lead:
-                # the parameters are replicated: only the lead writes
+            if saved_here and writes:
+                # the dp replicas are equal: only the lead writes
                 t_save = time.time()
                 save(i + 1)
                 # checkpoint seconds do not count in the next sec/batch
                 interval_start += time.time() - t_save
-                logging.info("%d-iter checkpoint created.", i + 1)
+                if is_lead:
+                    logging.info("%d-iter checkpoint created.", i + 1)
             if logged:
                 interval_start = time.time()
             local_tripped = guard.tripped_after_step()
@@ -278,9 +301,9 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
             # others waiting in the next step's collectives
             tripped = trip_synced if world is not None else local_tripped
             if tripped and (i + 1) < tcfg.iters:
+                if writes and not saved_here:
+                    save(i + 1)
                 if is_lead:
-                    if not saved_here:
-                        save(i + 1)
                     logging.warning(
                         "preemption%s at iteration %d: checkpoint saved, "
                         "exiting (resume with --resume auto)",
@@ -291,23 +314,34 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
     finally:
         guard.uninstall()
     if world is not None:
-        _check_replicas(state, world)
+        _check_replicas(state, world, mesh)
+    final = gather_params(mesh, state.params) if writes else None
     if is_lead:
-        save_final(expdir, state.params)
+        save_final(expdir, final)
         logging.info("final checkpoint created.")
         write_loss_record(flossyml, loss_record)
     return state
 
 
-def _check_replicas(state: TrainState, world) -> None:
-    """Log the dp all-reduce's cost, and raise unless every rank holds the
-    same parameters (a float64 checksum of every leaf, gathered)."""
+def _check_replicas(state: TrainState, world, mesh) -> None:
+    """Log the dp all-reduce's cost, and raise unless the replicas agree:
+    a float64 checksum of the replicated leaves, gathered over every rank,
+    and under tp one of this rank's sharded leaves, gathered over its dp
+    group."""
     from qpnet_tpu_torch.parallel import distributed as PD
-    total = float(sum(p.detach().double().sum()
-                      for p in tree_leaves(state.params)))
-    sums = PD.check_agreed(total, "the parameter checksum")
+    spec = tree_leaves(sharded_axes(mesh, state.params))
+    sums = [0.0, 0.0]
+    for p, axis in zip(tree_leaves(state.params), spec):
+        sums[axis is not None] += float(p.detach().double().sum())
+    PD.check_agreed(sums[0], "the replicated parameters' checksum")
+    what = "parameter checksum %.17g equal on the %d ranks" % (
+        sums[0] + sums[1], world.size)
+    if world.tp > 1:
+        PD.check_agreed(sums[1], "the sharded parameters' checksum",
+                        dp_only=True)
+        what = ("replicated parameters' checksum %.17g equal on the %d "
+                "ranks, this shard's %.17g on its %d dp ranks" % (
+                    sums[0], world.size, sums[1], world.dp))
     logging.info("dp: %d gradient all-reduces over %s, %.3f ms each (host "
-                 "clock); parameter checksum %.17g equal on the %d ranks",
-                 world.reduces, world.grad_backend,
-                 world.reduce_seconds / max(world.reduces, 1) * 1e3,
-                 sums[0], world.size)
+                 "clock); %s", world.reduces, world.grad_backend,
+                 world.reduce_seconds / max(world.reduces, 1) * 1e3, what)

@@ -57,8 +57,10 @@ def test_mesh_make_mesh_and_shard_batch():
         PM.make_mesh(2, "cpu")     # the CPU is one device
     with pytest.raises(ValueError, match="truncated"):
         PM.make_mesh(torch.cuda.device_count() + 1, "cuda")
-    for kw, item in (({"tp": 2}, "item 10"), ({"sp": 2}, "item 11"),
-                     ({"pp": 2}, "item 12")):
+    # tp is ported (tests/test_torch_port_tp.py): it must divide the mesh
+    with pytest.raises(ValueError, match="tp=2 must divide"):
+        PM.make_mesh(1, "cpu", tp=2)
+    for kw, item in (({"sp": 2}, "item 11"), ({"pp": 2}, "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             PM.make_mesh(1, "cpu", **kw)
     x = np.arange(12).reshape(4, 3)
@@ -201,7 +203,16 @@ def test_dp_step_matches_one_process_and_jax(engine, one_thread_ranks):
 
 
 def test_dryrun_returns_equal_losses(one_thread_ranks):
+    """The dp leg's losses equal one process's; the tp leg
+    (__graft_entry__.py:136-155), (dp=1, tp=2) on the same batch, is
+    within 1e-4 of the dp loss with each gate shard holding 2R/2 paired
+    columns."""
     out = dryrun.dryrun_multichip(2)
     a, b = out["dp_losses"]
     assert a == b and np.isfinite(a)
     np.testing.assert_allclose(a, out["single_loss"], rtol=1e-6)
+    assert len(out["tp_losses"]) == 2
+    np.testing.assert_allclose(out["tp_losses"], a, atol=1e-4)
+    R = dryrun.CFG["n_resch"]
+    assert out["tp_W_cur"] == [(R, R)] * 2
+    dryrun.check_dryrun(out, ModelConfig(**dryrun.CFG))

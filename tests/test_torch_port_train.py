@@ -415,24 +415,25 @@ def test_cli_defaults_to_cuda(corpus, tmp_path):
     ["--coordinator", "localhost:1234"], ["--n_hosts", "2"],
     ["--host_id", "0"]])
 def test_cli_rejects_what_is_not_ported(corpus, tmp_path, extra, monkeypatch):
-    """tp, sp and pp still raise, naming their ROADMAP items.  dp is
-    ported: --n_devices with --device cuda needs that many cards (asked
-    for one more than the host has: ValueError; CPU ranks:
-    tests/test_torch_port_multihost.py),
-    and a lone --coordinator, --n_hosts or --host_id is a single-host run,
-    as in the JAX CLI (initialize_multihost returns False)."""
+    """sp and pp still raise, naming their ROADMAP items.  dp and tp are
+    ported: --n_devices, and --tp (a host runs max(n_devices, tp) ranks),
+    with --device cuda need that many cards (asked for one more than the
+    host has: ValueError; CPU ranks: tests/test_torch_port_multihost.py
+    and tests/test_torch_port_tp.py), and a lone --coordinator, --n_hosts
+    or --host_id is a single-host run, as in the JAX CLI
+    (initialize_multihost returns False)."""
     from qpnet_tpu_torch.bin import qpnet_train as cli
     for k in ("QPNET_COORDINATOR", "QPNET_NUM_HOSTS", "QPNET_HOST_ID"):
         monkeypatch.delenv(k, raising=False)
-    item = {"--tp": "10", "--sp": "11", "--pp": "12"}.get(extra[0])
+    item = {"--sp": "11", "--pp": "12"}.get(extra[0])
     argv = train_argv(corpus, str(tmp_path), "--device", "cpu", *extra)
     if item:
         with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
             cli.main(argv)
-    elif extra[0] == "--n_devices":
+    elif extra[0] in ("--n_devices", "--tp"):
         more = max(2, torch.cuda.device_count() + 1)
         with pytest.raises(ValueError, match=f"{more} cuda devices requested"):
-            cli.main(argv + ["--n_devices", str(more), "--device", "cuda"])
+            cli.main(argv + [extra[0], str(more), "--device", "cuda"])
         assert not os.path.exists(str(tmp_path / "model.conf"))
     else:
         cli.main(argv)
