@@ -76,7 +76,7 @@ Phases, each reported on its own line; any failure exits non-zero:
      `convert_state_dict`'s bit for bit, loaded onto the card and decoded
      for 2 frames through K1 (launched, outputs finite);
  14. `tools/serve_soak.run_soak` on the default network, bf16, 8 streams,
-     one minute of 1.0 s utterances: ok, completions, K1 launched; its
+     half a minute of 1.0 s utterances: ok, completions, K1 launched; its
      summary JSON, prewarmed group sizes and chunk latencies;
  15. WORLD analysis on the card (plain PyTorch, no kernel of its own) at
      the port's AcousticConfig (22,050 Hz, fftl 1024, mcep 34, alpha
@@ -192,16 +192,35 @@ Phases, each reported on its own line; any failure exits non-zero:
      the plain engine (K2 not launched), each passing the tool's loss gate,
      with ms per step and peak device memory.  K2's launches go into the
      K2 rows' `launches_by_path["deep_train"]`.
- 20. tensor parallelism on the one card: two gloo ranks on cuda:0 as a
-     (dp=1, tp=2) mesh, the default net at full width, f32, the plain
-     engine, 4 steps on 3,300-sample windows of phase 7's corpus, beside
-     one process on the same batches: losses within rtol 2e-5, step 1's
-     gradients within 1e-4 of each leaf's norm from the float64 gradient,
-     each rank's W_cur holding 2R/2 paired columns, and the checkpoint the
+ 20. tensor parallelism on the one card: (dp=1, tp=2) as two gloo ranks
+     on cuda:0, the default net at full width, f32, the plain engine, 4
+     steps on 3,300-sample windows of phase 7's corpus, beside one process
+     on the same batches: losses within rtol 2e-5, step 1's gradients
+     within 1e-4 of each leaf's norm from the float64 gradient, each
+     rank's W_cur holding 2R/2 paired columns, and the checkpoint the
      ranks gather equal in layout to the one process's; the final
      parameters' distance from one process's printed, not gated; ms per
-     step beside phase 8's.  No kernel
-     runs on this path (the tp forward is the plain engine, as in JAX).
+     step beside phase 8's.  Phases 20-22 run their legs in one spawn of
+     four ranks (`dryrun.run_legs`); no kernel runs on these paths (the
+     plain engine, as in JAX under a mesh).  Each prints the post-net
+     ReLU inputs that one process's f32 forward puts on the other branch
+     from float64 (`kink_line`);
+ 21. sequence parallelism on the one card: (dp=1, sp=2) and (dp=1, tp=2,
+     sp=2) as two and four gloo ranks, phase 20's batches and one process:
+     losses within rtol 2e-5, step 1's gradients within 1e-4 of each
+     leaf's norm from the float64 gradient at float64's ReLU branches or,
+     every leaf, at one process's f32 branches (float64 sums over the
+     branches an f32 forward takes where a post-net input lies within
+     rounding of 0), each rank's x holding T/2 samples, each block's
+     agreed halo (printed beside maxd*dil) no longer than that bound; ms
+     per step beside one process's;
+ 22. pipeline parallelism on the one card: (dp=1, pp=2) GPipe over 2
+     microbatches of B=2 windows of 3,300 samples as two gloo ranks,
+     beside one process on the same batches: the last stage's logits
+     against one process's forward (bit-equal or not, printed), losses
+     within rtol 1e-5, step 1's gradients within 1e-4 of each leaf's norm
+     from the float64 gradient as in phase 21; the bubble share and ms
+     per step.
 Each main path (phases 4, 7, 10, 12-19) also prints its peak device memory.
 Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
@@ -512,7 +531,7 @@ def main() -> int:
         row["launches_by_path"] = {"train": row["launches"], "dp_train": n,
                                    "deep_train": d.pop("launches")}
         row["deep_net"] = d
-    tp_smoke(dev, card, kernels[2]["train_step_ms"]["xla"])
+    mp_smoke(dev, card, kernels[2]["train_step_ms"]["xla"])
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -1523,20 +1542,23 @@ def tools_smoke(cfg, dev, card):
     return launches
 
 
+SOAK_MINUTES = 0.5   # the tool's default is 10; the run's time limit
+
+
 def soak_smoke(dev, card):
-    """Phase 14: the serving soak on the default net, bf16, 8 streams, one
-    minute of 1.0 s utterances; returns K1's launches in it."""
+    """Phase 14: the serving soak on the default net, bf16, 8 streams,
+    SOAK_MINUTES of 1.0 s utterances; returns K1's launches in it."""
     import torch
 
     from qpnet_tpu_torch.ops import gen_kernel as K
     from qpnet_tpu_torch.tools.serve_soak import run_soak
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_count()
-    out = run_soak(minutes=1.0, streams=8, seconds=1.0, device=dev,
+    out = run_soak(minutes=SOAK_MINUTES, streams=8, seconds=1.0, device=dev,
                    verbose=False)
     launches = K.launch_count
     phase("soak", "summary " + json.dumps(out))
-    phase("soak", f"default net bf16, 8 streams, 1 min of 1.0 s "
+    phase("soak", f"default net bf16, 8 streams, {SOAK_MINUTES} min of 1.0 s "
                   f"utterances: ok {out['ok']}, {out['completions']} "
                   f"completions, prewarmed group sizes "
                   f"{out['prewarmed_buckets']} in {out['prewarm_s']} s, "
@@ -2884,7 +2906,7 @@ def dp_train_smoke(card, step_ms):
 
 # --- phase 19: deep-net training on the card ---------------------------------
 
-DEEP_ITERS = 150     # each engine: the loss gate's first and last 50 apart
+DEEP_ITERS = 100     # each engine: the loss gate's first and last 50
 
 
 def deep_train_smoke(dev, card):
@@ -2957,68 +2979,224 @@ def deep_train_smoke(dev, card):
             for i, name in enumerate(("fwd", "bwd"))]
 
 
-# --- phase 20: tensor parallelism on one card ---------------------------------
+# --- phases 20-22: model parallelism on one card ----------------------------
 
 TP_STEPS = 4
 TP_LR = 1e-4
 
 
-def tp_smoke(dev, card, step_ms):
-    """Phase 20: two gloo ranks on the card as a (dp=1, tp=2) mesh against
-    one process on the same batches."""
-    import torch
-
-    from qpnet_tpu_torch.config import ModelConfig
+def mp_batches(cfg, B):
+    """TP_STEPS batches of B windows of 3,300 samples from phase 7's
+    in-memory corpus (phases 20-22)."""
     from qpnet_tpu_torch.data import batcher as DB
-    from qpnet_tpu_torch.models.qpnet import init_params, tree_map
-    from qpnet_tpu_torch.parallel import dryrun
-    from qpnet_tpu_torch.train import step as TS
-    t_phase = time.perf_counter()
-    cfg = ModelConfig()
     utts, scaler = memory_corpus(cfg, seed=7)
     stream = DB.window_batches(
         DB.utterance_stream(utts, lambda u: u, seed=1), cfg,
-        feat_transform=scaler.transform, batch_length=2200, batch_size=1,
+        feat_transform=scaler.transform, batch_length=2200, batch_size=B,
         max_length=3300)
     batches = [next(stream) for _ in range(TP_STEPS)]
     for b in batches:
         b.pop("window_lens")
-    T = batches[0]["x"].shape[1]
-    one_rep = {}
-    one_losses, one_params = dryrun.steps(cfg, batches, dev, engine="xla",
-                                          lr=TP_LR, report=one_rep)
-    shard_dev = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
-                 else str(dev))
+    return batches
+
+
+def relu_branches(masks=None):
+    """(a stand-in for torch.nn.functional inside models/qpnet.py, the list
+    it fills): its relu records each input, the post-net's two (the skip
+    sum, then the first product), and with `masks` takes those 0/1
+    branches instead of z > 0.  The rest is torch's."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+    seen = []
+
+    def relu(z):
+        seen.append(z.detach())
+        return torch.relu(z) if masks is None else z * masks[len(seen) - 1]
+
+    return types.SimpleNamespace(**{**vars(F), "relu": relu}), seen
+
+
+def mp_reference(cfg, batches, dev):
+    """One process's TP_STEPS steps on the batches (plain engine, f32,
+    parameters of seed 0) and step 1's gradient in float64 from the same
+    parameters and batch, twice: at float64's own ReLU branches ("g64"),
+    and at the branches of one process's f32 forward ("g64m"), which
+    differ where a post-net input lies within f32 rounding of 0 ("kinks":
+    per ReLU input the branches that differ, the largest |f32 - f64|, the
+    inputs within it of 0); what phases 20-22 hold their ranks to."""
+    from unittest import mock
+
+    import torch
+
+    from qpnet_tpu_torch.models import qpnet as Q
+    from qpnet_tpu_torch.models.qpnet import init_params, tree_map
+    from qpnet_tpu_torch.parallel import dryrun
+    from qpnet_tpu_torch.train import step as TS
+    rep = {}
+    losses, params = dryrun.steps(cfg, batches, dev, engine="xla", lr=TP_LR,
+                                  report=rep)
+    batch = TS.batch_to_device(batches[0], dev)
+
+    def loss_at(dtype, masks=None):
+        p = tree_map(lambda t: t.to(dtype).requires_grad_(),
+                     init_params(0, cfg, device=dev))
+        shim, seen = relu_branches(masks)
+        with mock.patch.object(Q, "F", shim):
+            loss = TS._loss_fn(p, cfg, batch, dtype, False)
+        return p, loss, seen
+
+    with torch.no_grad():
+        z32 = loss_at(torch.float32)[2]
+    grads = {}
+    for key, masks in (("g64", None),
+                       ("g64m", [(z > 0).double() for z in z32])):
+        p64, loss, z64 = loss_at(torch.float64, masks)
+        loss.backward()
+        grads[key] = [np.zeros(tuple(p.shape)) if p.grad is None
+                      else p.grad.cpu().numpy() for p in TS.tree_leaves(p64)]
+        if masks is None:
+            names = TS.tree_leaves(tree_names(p64))
+            kinks = []
+            for a, b in zip(z32, z64):
+                err = float((a.double() - b).abs().max())
+                kinks.append({"flips": int(((a > 0) != (b > 0)).sum()),
+                              "rounding": err,
+                              "near_0": int((b.abs() <= err).sum()),
+                              "inputs": b.numel()})
+        del p64, loss, z64
+    return {"batches": batches, "losses": losses, "params": params,
+            "rep": rep, "names": names, "kinks": kinks, **grads}
+
+
+def kink_line(ref):
+    """The post-net's ReLU inputs that one process's f32 forward puts on
+    the other branch, and its f32 gradient's distance (the worst leaf,
+    |d| / |f64|) to the f64 gradient at f64's branches and at its own."""
+    worst = [max(norm_rel(go, g, g) for go, g in zip(ref["rep"]["grads"],
+                                                     ref[key]))
+             for key in ("g64", "g64m")]
+    return (f"post-net ReLU inputs (skip sum, first product) of step 1, one "
+            f"process's f32 forward against f64: "
+            + "; ".join(f"{k['flips']} on the other branch, {k['near_0']} "
+                        f"of {k['inputs']} within the largest |f32 - f64| "
+                        f"({k['rounding']:.2e}) of 0" for k in ref["kinks"])
+            + f"; one process's f32 gradient, the worst leaf, {worst[0]:.2e} "
+              f"from f64 at f64's branches and {worst[1]:.2e} at its own")
+
+
+def norm_rel(a, b, scale):
+    return float(np.linalg.norm(np.asarray(a, np.float64) - b)
+                 / max(np.linalg.norm(scale), 1e-30))
+
+
+def held_to_reference(tag, losses, rep, ref, loss_tol, either=False):
+    """One rank's losses (relative, within loss_tol) and step 1's gradients
+    against `mp_reference`: every leaf within 1e-4 of the float64
+    gradient's norm, measured as |d| / |f64|, at f64's ReLU branches or,
+    with `either`, all of them at one process's f32 branches.  Returns
+    (the line that describes them, the gates that failed); the caller
+    prints the line before it checks.  A post-net ReLU input within f32
+    rounding of 0 takes the other branch in an f32 forward (`kink_line`)
+    and moves the gradient by 2e-4 to 1e-3 of a leaf's norm; f32 ranks
+    that sum that input as one process does take it too."""
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses, ref["losses"]))
+    rows = sorted(((norm_rel(gr, g, g), norm_rel(gr, gm, g), n)
+                   for n, gr, g, gm in zip(ref["names"], rep["grads"],
+                                           ref["g64"], ref["g64m"])),
+                  reverse=True)
+    worst = [max(row[i] for row in rows) for i in (0, 1)]
+    held = "f64's branches" if worst[0] <= 1e-4 else \
+        "one process's f32 branches" if either and worst[1] <= 1e-4 else None
+    failed = [f"{tag}: losses off by {loss_rel}"] if loss_rel > loss_tol \
+        else []
+    failed += [f"{tag}: gradients off the f64 gradient: {rows[:8]}"] \
+        if held is None else []
+    text = (f"losses {[round(x, 7) for x in losses]} against one process's "
+            f"{[round(x, 7) for x in ref['losses']]} (max rel "
+            f"{loss_rel:.2e}, tol {loss_tol:g}); step 1's gradients per "
+            f"leaf, |rank - f64| over |f64| at f64's branches and at one "
+            f"process's f32 branches, the worst five: "
+            + "; ".join(f"{n} {a:.2e} {b:.2e}" for a, b, n in rows[:5])
+            + f"; the worst leaf {worst[0]:.2e} and {worst[1]:.2e}; every "
+              f"leaf within 1e-4 at {held or 'neither'}")
+    return text, failed
+
+
+def gate(failed):
+    for what in failed:
+        check(False, what)
+
+
+def rank_devices(dev, n):
+    import torch
+    return [f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+            else str(dev)] * n
+
+
+def step_ms_line(ranks):
+    """Each rank's median ms per step over steps 2-TP_STEPS."""
+    return ", ".join(f"{float(np.median(out[-1]['step_ms'][1:])):.3f}"
+                     for out in ranks)
+
+
+PP_M = 2
+
+
+def mp_smoke(dev, card, step_ms):
+    """Phases 20-22: one spawn of four gloo ranks on the card runs, in
+    turn, (dp=1, tp=2), (dp=1, sp=2) and (dp=1, pp=2) (its logits, then
+    its steps) on ranks 0-1 and (dp=1, tp=2, sp=2) on all four, so a rank
+    pays its start-up once; then each phase holds its legs to one process
+    on the same batches (`mp_reference`)."""
+    import dataclasses
+
+    from qpnet_tpu_torch.config import ModelConfig
+    from qpnet_tpu_torch.models.qpnet import init_params, tree_map
+    from qpnet_tpu_torch.parallel import dryrun
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()
+    ref1 = mp_reference(cfg, mp_batches(cfg, 1), dev)
+    ref2 = mp_reference(cfg, mp_batches(cfg, 2), dev)
+    params = tree_map(lambda t: t.cpu().numpy(),
+                      init_params(0, cfg, device=dev))
+
+    def steps(ref, **kw):
+        return dryrun.steps_args(cfg, ref["batches"], True, engine="xla",
+                                 lr=TP_LR, **kw)
+
+    devices = rank_devices(dev, 4)
     t0 = time.perf_counter()
-    ranks = dryrun.run_dp_steps(2, cfg, batches, tp=2,
-                                devices=[shard_dev] * 2, report=True,
-                                engine="xla", lr=TP_LR, timeout=300)
-    wall = time.perf_counter() - t0
-    # step 1's gradient in float64 from the same parameters and batch
-    p64 = tree_map(lambda t: t.double().requires_grad_(),
-                   init_params(0, cfg, device=dev))
-    TS._loss_fn(p64, cfg, TS.batch_to_device(batches[0], dev), torch.float64,
-                False).backward()
-    g64 = [np.zeros(tuple(p.shape)) if p.grad is None
-           else p.grad.cpu().numpy() for p in TS.tree_leaves(p64)]
-    names = TS.tree_leaves(tree_names(p64))
-    del p64
+    tp, sp, logits, pp, tp_sp = dryrun.run_legs(4, [
+        (2, {"tp": 2}, dryrun.steps_job, steps(ref1)),
+        (2, {"sp": 2}, dryrun.steps_job, steps(ref1)),
+        (2, {"pp": 2}, dryrun.pp_logits, {
+            "cfg": dataclasses.asdict(cfg), "params": params,
+            "batch": ref2["batches"][0], "M": PP_M, "dtypes": ("float32",)}),
+        (2, {"pp": 2}, dryrun.steps_job, steps(ref2, n_microbatches=PP_M)),
+        (4, {"tp": 2, "sp": 2}, dryrun.steps_job, steps(ref1))], devices,
+        timeout=600)
+    phase("time", f"phases 20-22's five legs on 4 gloo ranks of the card: "
+                  f"{time.perf_counter() - t0:.3f} s with the ranks' "
+                  f"start-up (one spawn) | {card}")
+    tp_smoke(card, step_ms, ref1, tp, devices)
+    sp_smoke(card, ref1, {"sp": sp, "tp, sp": tp_sp}, devices)
+    pp_smoke(card, ref2, logits, pp, devices)
+    phase("mp", f"phases 20-22 took {time.perf_counter() - t_phase:.1f} s")
 
-    def norm_rel(a, b):
-        return float(np.linalg.norm(np.asarray(a, np.float64) - b)
-                     / max(np.linalg.norm(b), 1e-30))
 
+def tp_smoke(card, step_ms, ref, ranks, devices):
+    """Phase 20: the (dp=1, tp=2) leg against one process on the same
+    batches."""
+    from qpnet_tpu_torch.config import ModelConfig
+    cfg = ModelConfig()
+    phase("tp", f"B=1: {kink_line(ref)}")
+    T = ref["batches"][0]["x"].shape[1]
     for r, (losses, leaves, rep) in enumerate(ranks):
-        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
-                                                           one_losses))
-        # per leaf: |tp - f64| / |f64| (the gate) and |one - f64| / |f64|.
-        # The f64 gradient is the reference: one process's f32 gradient on
-        # the card sits 2.4-3.0e-4 of a leaf's norm from it (one post-net
-        # ReLU input within f32 rounding of 0 takes the other branch).
-        rows = sorted(((norm_rel(gt, g), norm_rel(go, g), n) for n, gt, go, g
-                       in zip(names, rep["grads"], one_rep["grads"], g64)),
-                      reverse=True)
-        bad = [row for row in rows if row[0] > 1e-4]
+        held, failed = held_to_reference(f"tp rank {r}", losses, rep, ref,
+                                         2e-5)
         # the final parameters are printed, not gated: Adam's first steps
         # move an element by about lr whatever its gradient's size, so an
         # element whose gradient is within the two runs' difference of 0
@@ -3026,38 +3204,95 @@ def tp_smoke(dev, card, step_ms):
         param_d, param_rel, param_leaf = max(
             (float(np.abs(a - b).max()),
              float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)), n)
-            for n, a, b in zip(names, leaves, one_params))
+            for n, a, b in zip(ref["names"], leaves, ref["params"]))
         layout = tree_layout(rep["checkpoint"]) == tree_layout(
-            one_rep["checkpoint"])
-        phase("tp", f"rank {r} of (dp=1, tp=2) on {shard_dev}, default net, "
-                    f"f32, plain engine, B=1 T={T}, {TP_STEPS} steps: losses "
-                    f"{[round(x, 7) for x in losses]} against one process's "
-                    f"{[round(x, 7) for x in one_losses]} (max rel "
-                    f"{loss_rel:.2e}, tol 2e-5); step 1's gradients, |d| / "
-                    f"|f64| per leaf, the worst five (tp, one process): "
-                    + "; ".join(f"{n} {a:.2e} {b:.2e}" for a, b, n in rows[:5])
-                    + f"; tp leaves beyond 1e-4 of f64: {len(bad)}; final "
-                    f"parameters against one process's, the worst leaf "
-                    f"{param_leaf}: max |d| {param_d:.3e} = "
+            ref["rep"]["checkpoint"])
+        phase("tp", f"rank {r} of (dp=1, tp=2) on {devices[r]}, default "
+                    f"net, f32, plain engine, B=1 T={T}, {TP_STEPS} steps: "
+                    f"{held}; final parameters against one process's, the "
+                    f"worst leaf {param_leaf}: max |d| {param_d:.3e} = "
                     f"{param_d / TP_LR:.3f} lr, max |d| / max |ref| "
                     f"{param_rel:.2e} (not gated); W_cur shard "
                     f"{rep['W_cur']}; the gathered checkpoint's layout "
                     f"equal to one process's: {layout}")
-        check(loss_rel <= 2e-5, f"tp rank {r}: losses off by {loss_rel}")
-        check(not bad, f"tp rank {r}: gradients off f64: {bad}")
+        gate(failed)
         check(rep["W_cur"] == (cfg.n_resch, cfg.n_resch),
               f"tp rank {r}: W_cur shard {rep['W_cur']} must hold 2R/2 "
               f"columns")
         check(layout, f"tp rank {r}: checkpoint layout")
-    ms = [float(np.median(rep["step_ms"][1:])) for _, _, rep in ranks]
     phase("time", f"tp on one card (2 gloo ranks, T={T}): "
-                  f"{ms[0]:.3f} and {ms[1]:.3f} ms per step (median of "
-                  f"steps 2-{TP_STEPS}, host clock to the loss), one process "
-                  f"{float(np.median(one_rep['step_ms'][1:])):.3f} ms on the "
-                  f"same batches, phase 8's plain f32 step at T=30030 "
-                  f"{step_ms:.3f} ms; {wall:.3f} s for the two ranks with "
-                  f"start-up (bits, not speed) | {card}")
-    phase("tp", f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+                  f"{step_ms_line(ranks)} ms per step (median of steps "
+                  f"2-{TP_STEPS}, host clock to the loss), one process "
+                  f"{float(np.median(ref['rep']['step_ms'][1:])):.3f} ms on "
+                  f"the same batches, phase 8's plain f32 step at T=30030 "
+                  f"{step_ms:.3f} ms (bits, not speed) | {card}")
+
+
+# --- phase 21: sequence parallelism on one card ------------------------------
+
+def sp_smoke(card, ref, legs, devices):
+    """Phase 21: the (dp=1, sp=2) and (dp=1, tp=2, sp=2) legs against
+    phase 20's one process on the same batches."""
+    from qpnet_tpu_torch.config import ModelConfig
+    cfg = ModelConfig()
+    batches = ref["batches"]
+    T = batches[0]["x"].shape[1]
+    maxd = float(batches[-1]["d"].max())
+    bound = list(cfg.dilationsF) + [int(np.ceil(maxd * dil))
+                                    for dil in cfg.dilationsA]
+    for axes, ranks in legs.items():
+        name = ", ".join(f"{k}=2" for k in axes.split(", "))
+        for r, (losses, _, rep) in enumerate(ranks):
+            held, failed = held_to_reference(f"sp rank {r} ({name})",
+                                             losses, rep, ref, 2e-5, True)
+            phase("sp", f"rank {r} of (dp=1, {name}) on {devices[r]}, "
+                        f"default net, f32, plain engine, B=1 T={T}, "
+                        f"{TP_STEPS} steps: local x {rep['x']}; the last "
+                        f"step's agreed halo per block {rep['halos']} beside "
+                        f"maxd*dil {bound} (maxd {maxd:.3f}); {held}")
+            gate(failed)
+            check(rep["x"] == (1, T // 2),
+                  f"sp rank {r}: local x {rep['x']}, expected T/2")
+            check(all(H <= b for H, b in zip(rep["halos"], bound)),
+                  f"sp rank {r}: halos {rep['halos']} beyond {bound}")
+        phase("time", f"(dp=1, {name}) on one card ({len(ranks)} gloo "
+                      f"ranks, T={T}): {step_ms_line(ranks)} ms per step "
+                      f"(median of steps 2-{TP_STEPS}, host clock to the "
+                      f"loss), one process "
+                      f"{float(np.median(ref['rep']['step_ms'][1:])):.3f} "
+                      f"ms on the same batches (bits, not speed) | {card}")
+
+
+# --- phase 22: pipeline parallelism on one card ------------------------------
+
+def pp_smoke(card, ref, logits, ranks, devices):
+    """Phase 22: the (dp=1, pp=2) leg, GPipe over PP_M microbatches of
+    B=2, against one process on the same batches."""
+    from qpnet_tpu_torch.train.pipeline import bubble_share
+    phase("pp", f"B=2: {kink_line(ref)}")
+    T = ref["batches"][0]["x"].shape[1]
+    got, want = logits[-1]["float32"]
+    check(logits[0] == {}, "pp: stage 0 returned logits")
+    phase("pp", f"(dp=1, pp=2) GPipe, {PP_M} microbatches of B=2 T={T}, "
+                f"default net, f32, plain engine: the last stage's logits "
+                f"bit-equal to one process's forward: "
+                f"{np.array_equal(got, want)} (max |d| "
+                f"{float(np.abs(got - want).max()):.3e}, max |ref| "
+                f"{float(np.abs(want).max()):.3e}; printed, not gated: "
+                f"cuBLAS may sum the products of another row count in "
+                f"another order); bubble share (S-1)/(M+S-1) = "
+                f"{bubble_share(2, PP_M):.3f}")
+    for r, (losses, _, rep) in enumerate(ranks):
+        held, failed = held_to_reference(f"pp stage {r}", losses, rep, ref,
+                                         1e-5, True)
+        phase("pp", f"stage {r} of (dp=1, pp=2) on {devices[r]}, "
+                    f"{TP_STEPS} steps: {held}")
+        gate(failed)
+    phase("time", f"pp on one card (2 gloo ranks, B=2 T={T}, M={PP_M}): "
+                  f"{step_ms_line(ranks)} ms per step (median of steps "
+                  f"2-{TP_STEPS}, host clock to the loss), one process "
+                  f"{float(np.median(ref['rep']['step_ms'][1:])):.3f} ms on "
+                  f"the same batches (bits, not speed) | {card}")
 
 
 def tree_layout(tree, prefix=""):

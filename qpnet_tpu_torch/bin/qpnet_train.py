@@ -14,13 +14,16 @@ card (cuda:0..N-1), or N CPU ranks with --device cpu.  --coordinator
 host:port --n_hosts H --host_id h (or QPNET_COORDINATOR / QPNET_NUM_HOSTS /
 QPNET_HOST_ID) joins a multi-host world with one rank per visible card of
 each host, or --n_devices CPU ranks.  --tp N shards the residual channels
-over tp groups of N consecutive ranks of a host, Megatron-style (plain
-engine only): one host runs max(--n_devices, N) ranks, a (dp = ranks / N,
-tp = N) mesh.  --batch_size is the global batch and must divide over dp.
-The launcher forwards SIGTERM to its ranks (each saves at the agreed
-iteration and exits) and fails if any rank fails.  --sp/--pp/
---pp_microbatches and the orbax checkpoint backend are not ported
-(NotImplementedError).
+over tp groups of N consecutive ranks of a host, Megatron-style; --sp N
+shards each window's time axis over sp groups (halos exchanged between
+neighbours); --pp N runs the residual stack as N GPipe stages over
+--pp_microbatches microbatches of each dp shard (default N; pp composes
+with dp only).  All three run the plain engine.  One host runs
+max(--n_devices, tp * sp * pp) ranks, a (dp, tp, sp) or (dp, pp) mesh with
+dp = ranks / (tp * sp * pp); --batch_size is the global batch and must
+divide over dp.  The launcher forwards SIGTERM to its ranks (each saves at
+the agreed iteration and exits) and fails if any rank fails.  The orbax
+checkpoint backend is not ported (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -82,14 +85,19 @@ def get_arguments(argv=None):
                              "mesh (tp must divide the ranks of a host and "
                              "n_resch)")
     parser.add_argument("--sp", default=1, type=int,
-                        help="sequence-parallel group size; only 1 is "
-                             "ported")
+                        help="sequence-parallel group size: the training "
+                             "window's time axis shards over an sp mesh "
+                             "axis (tp*sp*pp must divide the ranks of a "
+                             "host, sp the window's frames)")
     parser.add_argument("--pp", default=1, type=int,
-                        help="pipeline-parallel group size; only 1 is "
-                             "ported")
+                        help="pipeline-parallel group size: the residual "
+                             "stack splits into pp GPipe stages (pp must "
+                             "divide the block count; composes with dp "
+                             "only)")
     parser.add_argument("--pp_microbatches", default=0, type=int,
-                        help="GPipe microbatches; pipeline parallelism is "
-                             "not ported")
+                        help="GPipe microbatch count per dp shard "
+                             "(0 = pp size); must divide the per-shard "
+                             "batch")
     parser.add_argument("--coordinator", default=None, type=str,
                         help="multi-host: host:port of rank 0's rendezvous "
                              "(or env QPNET_COORDINATOR)")
@@ -118,35 +126,46 @@ def get_arguments(argv=None):
 
 def check_ported(args) -> None:
     """Raise on argv that asks for what the port does not have yet."""
-    from qpnet_tpu_torch.parallel.mesh import PP, check_ported_axes
     from qpnet_tpu_torch.train.checkpoint import checkpoint_backend
-    check_ported_axes(args.sp, args.pp)
-    if args.pp_microbatches:
-        raise NotImplementedError(PP)
     checkpoint_backend()
 
 
 def dp_layout(args):
     """(hosts, local_ranks): hosts is (coordinator, n_hosts, host_id) or
     None for one host.  A multi-host run takes one rank per visible card
-    (--device cuda) or max(--n_devices, --tp) CPU ranks; one host,
-    max(--n_devices, --tp) ranks, as the JAX CLI's mesh.  Raises
-    ValueError when the cards are fewer than the ranks, when tp does not
-    divide a host's ranks, or when batch_size does not divide over dp."""
+    (--device cuda) or max(--n_devices, tp*sp*pp) CPU ranks; one host,
+    max(--n_devices, tp*sp*pp) ranks, as the JAX CLI's mesh.  Raises
+    ValueError when the cards are fewer than the ranks, when tp*sp*pp does
+    not divide a host's ranks, when batch_size does not divide over dp,
+    when sp does not divide the window's frames, or on a pipeline shape
+    that does not fit (`train/pipeline.py::check_pipeline`)."""
+    from qpnet_tpu_torch.data.batcher import padded_shape
     from qpnet_tpu_torch.parallel.distributed import resolve_multihost
-    from qpnet_tpu_torch.parallel.mesh import make_mesh
+    from qpnet_tpu_torch.parallel.mesh import Mesh, check_axes, make_mesh
+    axes = dict(tp=args.tp, sp=args.sp, pp=args.pp)
+    model = args.tp * args.sp * args.pp
     hosts = resolve_multihost(args.coordinator, args.n_hosts, args.host_id)
-    local = max(args.n_devices, args.tp)
+    local = max(args.n_devices, model)
     if args.device == "cuda" and (hosts is not None or local > 1):
-        local = make_mesh(None if hosts else local, "cuda", tp=args.tp).size
-    elif local % args.tp:
-        raise ValueError(f"tp={args.tp} must divide the {local} ranks of a "
-                         f"host")
-    dp = (hosts[1] if hosts else 1) * local // args.tp
+        local = make_mesh(None if hosts else local, "cuda", **axes).size
+    else:
+        check_axes(local, where=f"{local} ranks of a host: ", **axes)
+    dp = (hosts[1] if hosts else 1) * local // model
     if dp > 1 and args.batch_size % dp:
         raise ValueError(f"batch_size {args.batch_size} must divide over "
-                         f"the dp axis ({dp} of {dp * args.tp} ranks at "
-                         f"tp={args.tp})")
+                         f"the dp axis ({dp} of {dp * model} ranks at "
+                         f"tp={args.tp} sp={args.sp} pp={args.pp})")
+    frames = padded_shape(args.max_length, args.upsampling_factor) \
+        // args.upsampling_factor
+    if frames % args.sp:
+        raise ValueError(f"the window's time axis is sharded over "
+                         f"sp={args.sp}: its {frames} frames should be "
+                         f"divisible by {args.sp}")
+    if args.pp > 1:
+        from qpnet_tpu_torch.train.pipeline import check_pipeline
+        cfg, _ = build_configs(args)
+        check_pipeline(cfg, Mesh(["cpu"] * dp * model, **axes),
+                       args.pp_microbatches, args.batch_size // dp)
     return hosts, local
 
 
@@ -197,14 +216,15 @@ def run_rank(local_rank: int, args, hosts, local_ranks: int,
     host_id, n_hosts = (hosts[2], hosts[1]) if hosts else (0, 1)
     device = f"cuda:{local_rank}" if args.device == "cuda" else "cpu"
     PD.init_world(init_method, host_id, n_hosts, local_rank, local_ranks,
-                  device, tp=args.tp)
+                  device, tp=args.tp, sp=args.sp, pp=args.pp)
     try:
         cfg, tcfg = build_configs(args)
         wav_list, feat_list = resolve_lists(args)
         run_training(cfg, tcfg, wav_list, feat_list, args.stats, args.expdir,
                      feature_type=args.feature_type,
                      resume=_none(args.resume), pretrain=_none(args.pretrain),
-                     mesh=PD.rank_mesh())
+                     mesh=PD.rank_mesh(),
+                     n_microbatches=args.pp_microbatches or None)
     finally:
         PD.shutdown()
 

@@ -11,7 +11,12 @@ fill.
 `forward(tp=True)` is the tensor-parallel form, run by each rank of a tp
 group on its shard of the parameters (`train/step.py::shard_train_state`):
 the rank's R/tp residual channels, its gate columns paired as [s | t] of
-those channels.
+those channels.  `forward(sp=True)` is the sequence-parallel form, run by
+each rank of an sp group on its slice of the window's time axis
+(`parallel/mesh.py::time_slice`): every block reads its look-back rows
+from the halo of its predecessors' last rows (`parallel/distributed.py::
+sp_halo`) in gather form (`lookback_block`), the form the GPipe stages of
+`train/pipeline.py` run too.
 
 Precision: compute_dtype=float32 is the parity mode.  compute_dtype=bfloat16
 rounds every product's operands to bf16, accumulates in f32, and stores the
@@ -231,6 +236,54 @@ def gather_past(o: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return torch.gather(o, 1, idx[..., None].expand(B, T, C))
 
 
+def lookback_index(cfg: ModelConfig, d: torch.Tensor, t0: int = 0,
+                   total: Optional[int] = None) -> list:
+    """Per block, fixed then adaptive, the global row each row of the
+    block's input looks back to, (B, T_l) long, and a left-edge mask, for
+    a slice of T_l rows at global offset t0 of a `total`-row window
+    (default: the slice is the window): a fixed block reads t - dil, zero
+    where t < dil (`shift_time`'s fill: the mask); an adaptive block reads
+    t - round(d(t) dil) clipped to [0, total - 1] (mask None).  JAX's
+    `train/pipeline.py::_lookback_tables`, as indices."""
+    B, T_l = d.shape
+    total = T_l if total is None else total
+    t = t0 + torch.arange(T_l, device=d.device)[None, :].expand(B, T_l)
+    out = [((t - dil).clamp(min=0), t >= dil) for dil in cfg.dilationsF]
+    out += [(torch.clamp(t - round_look_back(d, dil), 0, total - 1).long(),
+             None) for dil in cfg.dilationsA]
+    return out
+
+
+def gather_rows(ext: torch.Tensor, idx: torch.Tensor,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """ext[:, idx] per row, zero where mask is False: the gather form of
+    `shift_time` (with a mask) and `gather_past` (without), equal to them
+    bit for bit."""
+    B, _, C = ext.shape
+    past = torch.gather(ext, 1, idx[..., None].expand(B, idx.shape[1], C))
+    return past if mask is None else torch.where(mask[..., None], past, 0)
+
+
+def lookback_block(p: Params, o: torch.Tensor, h_up: torch.Tensor,
+                   idx: torch.Tensor, mask: Optional[torch.Tensor], dtype,
+                   act, halo: Optional[torch.Tensor] = None,
+                   tp: bool = False):
+    """One residual block in gather form (JAX's pipeline `_unified_block`):
+    its look-back rows are ext[idx] (`gather_rows`), ext = [halo | o] along
+    time (o alone without a halo).  Under tp the halo, like o, is copied
+    to the tp group (its gradient summed over the group)."""
+    def past_of(oc):
+        if halo is None:
+            return gather_rows(oc, idx, mask)
+        before = halo
+        if tp:
+            from qpnet_tpu_torch.parallel.distributed import copy_to_tp
+            before = copy_to_tp(halo)
+        return gather_rows(torch.cat([before, oc], 1), idx, mask)
+
+    return residual_block(p, o, past_of, h_up, dtype, act, tp)
+
+
 def round_look_back(d: torch.Tensor, dil: int) -> torch.Tensor:
     """round(d * dil), half to even, as an int32 look-back."""
     return torch.round(d.float() * dil).to(torch.int32)
@@ -246,12 +299,16 @@ def postprocess(params: Params, skip_sum: torch.Tensor, dtype) -> torch.Tensor:
 # teacher-forced forward
 # ---------------------------------------------------------------------------
 
-def embed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Causal input layer: c[t] = E_cur[x[t]] + E_prev[x[t-1]] + b."""
+def embed(params: Params, x: torch.Tensor,
+          x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal input layer: c[t] = E_cur[x[t]] + E_prev[x[t-1]] + b, with
+    x[-1] the (B, 1) `x_prev` of a time slice, or zero fill without it."""
     x = x.long()
-    return (params["embed_cur"][x]
-            + shift_time(params["embed_prev"][x], 1)
-            + params["b_causal"])
+    if x_prev is None:
+        prev = shift_time(params["embed_prev"][x], 1)
+    else:
+        prev = params["embed_prev"][torch.cat([x_prev.long(), x[:, :-1]], 1)]
+    return params["embed_cur"][x] + prev + params["b_causal"]
 
 
 def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -260,7 +317,8 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
             h_up: Optional[torch.Tensor] = None,
             remat: bool = False, fixed_engine: str = "xla",
             maxd_bucket: Optional[int] = None,
-            tp: bool = False) -> torch.Tensor:
+            tp: bool = False, sp: bool = False,
+            x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Teacher-forced forward over a full window.
 
     x: (B, T) int mu-law classes (end-aligned, history on the left);
@@ -280,17 +338,23 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
     embedding runs on the rank's R/tp channels and is gathered, the aux is
     copied to every rank (its gradient summed over the group), and each
     block is `residual_block`'s tp form.  The post-net is replicated.
+    sp: x, h and d are this rank's time slice of an sp group's window
+    (plain engine only), x_prev the one sample of x before it (None on the
+    slice at global t = 0); every block reads its look-back from the halo
+    its predecessors send (`sp_tables`).  Composes with tp.
     Returns (B, T, n_quantize) f32 logits; logits[:, t] predicts x[t+1],
-    equal on every rank of a tp group.
+    equal on every rank of a tp group (under sp: the rank's time slice).
     """
     if fixed_engine not in ("xla", "pallas"):
         raise ValueError("fixed_engine should be 'xla' or 'pallas'")
+    if sp and fixed_engine == "pallas":
+        raise ValueError("forward(sp=True) runs the plain engine only")
     R = cfg.n_resch
     act = _act_dtype(compute_dtype)
     if h_up is None:
         h_up = upsample_aux(params, h, cfg.upsampling_factor)
     h_up = h_up.to(act)
-    o = embed(params, x)
+    o = embed(params, x, x_prev if sp else None)
     if tp:
         from qpnet_tpu_torch.parallel.distributed import (copy_to_tp,
                                                           gather_from_tp)
@@ -326,6 +390,22 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
         skip_sum = skip_sum + skip + sum(p["b_skip"] for p in layers)
         adaptive_rest = [] if fuse else \
             list(zip(params["adaptive"], cfg.dilationsA))
+    elif sp:
+        from qpnet_tpu_torch.parallel.distributed import sp_halo
+        block = lookback_block
+        if remat:
+            def block(*args):
+                return checkpoint(lookback_block, *args, use_reentrant=False)
+        for p, (idx, mask), H in zip(
+                list(params["fixed"]) + list(params["adaptive"]),
+                *sp_tables(cfg, d)):
+            # the exchange runs outside the recomputed region: a collective
+            # inside it would run again in the backward
+            halo = sp_halo(o, H)
+            o, skip = block(p, o, h_up, idx, mask, compute_dtype, act, halo,
+                            tp)
+            skip_sum = skip_sum + skip
+        adaptive_rest = []
     else:
         for p, dil in zip(params["fixed"], cfg.dilationsF):
             o, skip = fblock(p, o, h_up, dil, compute_dtype, act, tp)
@@ -336,3 +416,32 @@ def forward(params: Params, cfg: ModelConfig, x: torch.Tensor,
                          act, tp)
         skip_sum = skip_sum + skip
     return postprocess(params, skip_sum, compute_dtype)
+
+
+def sp_tables(cfg: ModelConfig, d: torch.Tensor):
+    """Per block of the sp forward, fixed then adaptive: (its look-back
+    index into [halo | o] and mask, as `lookback_index` gives them for
+    this rank's slice), and its halo length H, agreed over the sp group.
+    A rank's reach is the rows before its slice that its look-backs read:
+    min(dil, t0) for a fixed block, t0 - min(index) for an adaptive one
+    (bounded by maxd * dil, not dil); H is the group's largest, in one
+    small all-gather for every block."""
+    from qpnet_tpu_torch.parallel.distributed import sp_max, sp_position
+    B, T_l = d.shape
+    k, sp = sp_position()
+    t0 = k * T_l
+    look = lookback_index(cfg, d, t0, sp * T_l)
+    nF = len(cfg.dilationsF)
+    t = t0 + torch.arange(T_l, device=d.device)
+    adaptive = [torch.stack([t0 - idx.min(), (idx - t).max()])
+                for idx, _ in look[nF:]]
+    got = torch.stack(adaptive).cpu().numpy() if adaptive else \
+        np.zeros((0, 2), np.int64)
+    if (got[:, 1] > 0).any():
+        raise ValueError("sequence parallelism needs look-backs >= 0 "
+                         "(dilation factors d > 0)")
+    reach = [min(dil, t0) for dil in cfg.dilationsF] + \
+        [max(int(v), 0) for v in got[:, 0]]
+    Hs = [int(v) for v in sp_max(reach)]
+    return ([(idx - (t0 - H), mask) for (idx, mask), H in zip(look, Hs)],
+            Hs)

@@ -1,6 +1,6 @@
-"""Data and tensor parallelism over torch.distributed: the (dp, tp) mesh,
-the multi-host world with its dp and tp groups, and the dryrun (ROADMAP.md,
-Queue 1: sp and pp follow)."""
+"""Data, tensor, sequence and pipeline parallelism over torch.distributed:
+the (dp, tp, sp) and (dp, pp) meshes, the multi-host world with its
+gradient, tp, sp and pp groups, and the dryrun."""
 
 from qpnet_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh, make_mesh, shard_batch,

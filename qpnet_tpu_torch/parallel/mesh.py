@@ -1,6 +1,6 @@
 """The training and decode mesh: an ordered list of torch devices over a
-"dp" axis and, in training, a "tp" axis; the port's counterpart of
-`qpnet_tpu/parallel/mesh.py`.
+"dp" axis and, in training, "tp", "sp" or "pp" axes; the port's
+counterpart of `qpnet_tpu/parallel/mesh.py`.
 
 JAX shards arrays over a `jax.sharding.Mesh` and lets GSPMD insert the
 collectives.  The port names a device per shard instead: decode runs one
@@ -10,12 +10,23 @@ one process per rank (`parallel/distributed.py`), whose gradients meet in
 one all-reduce a step (`train/step.py`).  Batches shard over dp and
 parameters are replicated, as in JAX.
 
-A tp axis (training only) has shape (dp = n / tp, tp): rank r sits at
-(r // tp, r % tp), so a tp group is tp consecutive ranks, which stay on
-one host.  Its ranks share the batch rows of their dp index and hold
-slices of the residual channels (`train/step.py::param_sharding_tree`).
-sp and pp are not ported: they raise NotImplementedError naming their
-ROADMAP.md items.
+The axes (training only beyond dp):
+  tp: the ranks of a tp group share the batch rows of their dp index and
+      hold slices of the residual channels (`train/step.py::
+      param_sharding_tree`);
+  sp: the ranks of an sp group share those rows and hold consecutive
+      slices of the window's time axis (`time_slice`): x, t and d by
+      samples, h by frames, with the halos of the shifted products and the
+      pitch gather exchanged explicitly (`distributed.sp_halo`);
+  pp: the ranks of a pp group share those rows and run consecutive stages
+      of the residual stack (`train/pipeline.py`); pp composes with dp only.
+
+Rank order is (dp, pp, sp, tp), tp fastest: rank = ((dp_rank * pp +
+pp_rank) * sp + sp_rank) * tp + tp_rank.  So a tp group is tp consecutive
+ranks (as before sp), an sp group spans sp * tp consecutive ranks and a pp
+group pp consecutive ranks: every group stays on one host.  JAX's
+`make_mesh` orders its axes (dp, tp, sp, pp); the shapes and axis names
+below are JAX's, the placement of ranks is the port's.
 """
 
 from __future__ import annotations
@@ -25,22 +36,22 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-SP = ("sequence parallelism (sp) is not ported yet: ROADMAP.md, Queue 1 "
-      "item 11")
-PP = ("pipeline parallelism (pp, GPipe microbatches) is not ported yet: "
-      "ROADMAP.md, Queue 1 item 12")
+MODEL_AXES = ("tp", "sp", "pp")
 
 
-def check_ported_axes(sp: int = 1, pp: int = 1) -> None:
-    """Raise NotImplementedError for an sp or pp axis of size > 1."""
-    for size, msg in ((sp, SP), (pp, PP)):
-        if size and size > 1:
-            raise NotImplementedError(msg)
+def check_axes(n: int, tp: int = 1, sp: int = 1, pp: int = 1,
+               where: str = "") -> None:
+    """Raise ValueError unless every axis is >= 1 and tp * sp * pp divides
+    the n devices (JAX's "must divide" words, naming the axes > 1)."""
+    sizes = dict(zip(MODEL_AXES, (tp, sp, pp)))
+    if any(int(v) < 1 for v in sizes.values()) or n % (tp * sp * pp):
+        axes = " x ".join(f"{k}={v}" for k, v in sizes.items() if v != 1)
+        raise ValueError(f"{where}{axes} must divide the {n}-device mesh")
 
 
 class Mesh:
-    """A (dp, tp) mesh over `devices`, in rank order; tp = 1 is the dp
-    mesh.
+    """A (dp, tp, sp) or (dp, pp) mesh over `devices`, in rank order (see
+    the module docstring); tp = sp = pp = 1 is the dp mesh.
 
     A device may appear more than once: its shards then share it, as the
     JAX package's virtual CPU devices share one host (`Mesh(["cpu"] * 4)`
@@ -51,17 +62,16 @@ class Mesh:
     shard (decode, dp only)."""
 
     def __init__(self, devices: Sequence, rank: Optional[int] = None,
-                 tp: int = 1):
+                 tp: int = 1, sp: int = 1, pp: int = 1):
         self.devices: List[torch.device] = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
         if rank is not None and not 0 <= rank < len(self.devices):
             raise ValueError(f"rank {rank} outside a {len(self.devices)}-"
                              f"device mesh")
-        if tp < 1 or len(self.devices) % tp:
-            raise ValueError(f"tp={tp} must divide the "
-                             f"{len(self.devices)}-device mesh")
-        self.rank, self.tp = rank, int(tp)
+        check_axes(len(self.devices), tp, sp, pp)
+        self.rank = rank
+        self.tp, self.sp, self.pp = int(tp), int(sp), int(pp)
 
     @property
     def size(self) -> int:
@@ -69,16 +79,24 @@ class Mesh:
 
     @property
     def dp(self) -> int:
-        return self.size // self.tp
+        return self.size // (self.tp * self.sp * self.pp)
 
     @property
     def axis_names(self) -> tuple:
-        return ("dp", "tp") if self.tp > 1 else ("dp",)
+        return tuple(self.shape)
 
     @property
     def shape(self) -> dict:
-        return {"dp": self.dp, "tp": self.tp} if self.tp > 1 else \
-            {"dp": self.dp}
+        """{"dp": n, then "tp", "sp", "pp" where > 1}, JAX's axis order."""
+        return {"dp": self.dp, **{k: getattr(self, k) for k in MODEL_AXES
+                                  if getattr(self, k) > 1}}
+
+    def coords(self, rank: int) -> dict:
+        """{"dp", "pp", "sp", "tp"} indices of a rank."""
+        tp_rank, rest = rank % self.tp, rank // self.tp
+        sp_rank, rest = rest % self.sp, rest // self.sp
+        return {"dp": rest // self.pp, "pp": rest % self.pp, "sp": sp_rank,
+                "tp": tp_rank}
 
     def __repr__(self) -> str:
         names = [str(d) for d in self.devices]
@@ -89,12 +107,11 @@ class Mesh:
 
 def make_mesh(n_devices: Optional[int] = None, device="cuda",
               tp: int = 1, sp: int = 1, pp: int = 1) -> Mesh:
-    """A (dp = n / tp, tp) mesh over the first `n_devices` distinct devices
-    of type `device` (default: all of them).  Fewer than asked for raises:
-    a silently truncated mesh would hide wrong sharding; so does a tp that
-    does not divide them.  The CPU is one device; a mesh of CPU shards is
-    built with `Mesh` directly."""
-    check_ported_axes(sp, pp)
+    """A (dp, tp, sp) or (dp, pp) mesh over the first `n_devices` distinct
+    devices of type `device` (default: all of them).  Fewer than asked for
+    raises: a silently truncated mesh would hide wrong sharding; so does a
+    tp * sp * pp that does not divide them.  The CPU is one device; a mesh
+    of CPU shards is built with `Mesh` directly."""
     kind = torch.device(device).type
     if kind == "cuda":
         avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -112,10 +129,8 @@ def make_mesh(n_devices: Optional[int] = None, device="cuda",
         names = names[:n_devices]
     if not names:
         raise ValueError(f"make_mesh: no {kind} device is available")
-    if len(names) % tp:
-        raise ValueError(f"make_mesh: tp={tp} must divide the "
-                         f"{len(names)}-device mesh")
-    return Mesh(names, tp=tp)
+    check_axes(len(names), tp, sp, pp, "make_mesh: ")
+    return Mesh(names, tp=tp, sp=sp, pp=pp)
 
 
 def shard_rows(n_rows: int, n_shards: int) -> List[slice]:
@@ -137,12 +152,46 @@ def take(value, rows: slice, device):
         device)
 
 
+def time_slice(tree: dict, sp: int, k: int) -> dict:
+    """Rank k's slice of an sp group's time axis, the counterpart of the
+    "sp" entry of JAX's `batch_sharding`: samples [k T/sp, (k+1) T/sp) of
+    x, t and d, frames [k F/sp, (k+1) F/sp) of h (every entry's second
+    axis), scalars unchanged, and "x_prev": x's one sample before the
+    slice, for the embedding's shift (zeros where k = 0: the embedding
+    zero-fills global t = 0).  Raises ValueError, in the words of JAX's
+    `device_put`, unless sp divides every time axis: F frames, so T/sp is
+    whole frames (no uneven shards, as in JAX)."""
+    out = {}
+    for key, v in tree.items():
+        if np.ndim(v) < 2:
+            out[key] = v
+            continue
+        n = v.shape[1]
+        if n % sp:
+            raise ValueError(
+                f"batch entry {key!r} is time-sharded over sp={sp}: the "
+                f"global size of its dimension 1 should be divisible by "
+                f"{sp}, but it is equal to {n} (full shape: "
+                f"{tuple(v.shape)})")
+        out[key] = v[:, k * (n // sp):(k + 1) * (n // sp)]
+    if "x" in tree:
+        x, t0 = tree["x"], k * (tree["x"].shape[1] // sp)
+        out["x_prev"] = x[:, t0 - 1:t0] if k else x[:, :1] * 0
+    return out
+
+
 def shard_batch(mesh: Mesh, tree: dict) -> List[dict]:
-    """Each device's rows of a batch (a dict of arrays or tensors with the
-    batch first; scalars are replicated), as tensors on that device."""
+    """Each rank's part of a batch (a dict of arrays or tensors with the
+    batch first; scalars are replicated), as tensors on its device: its
+    dp index's rows and, under sp, its slice of the time axis
+    (`time_slice`)."""
     n = {np.shape(v)[0] for v in tree.values() if np.ndim(v) > 0}
     if len(n) != 1:
         raise ValueError(f"batch entries disagree on the batch size: {n}")
-    return [{k: take(v, rows, dev) for k, v in tree.items()}
-            for rows, dev in zip(shard_rows(n.pop(), mesh.size),
-                                 mesh.devices)]
+    rows = shard_rows(n.pop(), mesh.dp)
+    out = []
+    for r, dev in enumerate(mesh.devices):
+        c = mesh.coords(r)
+        part = time_slice(tree, mesh.sp, c["sp"]) if mesh.sp > 1 else tree
+        out.append({k: take(v, rows[c["dp"]], dev) for k, v in part.items()})
+    return out

@@ -23,8 +23,15 @@ Adam's moments (`param_sharding_tree`, `shard_train_state`) and runs
 the place of the ones GSPMD inserts in JAX; the gradients of each shard are
 then averaged over its dp group only, since the shards differ from tp rank
 to tp rank.  The tp forward is the plain engine: K2 runs the whole width.
-Sequence and pipeline parallelism (and GPipe microbatches) are not ported:
-ROADMAP.md, Queue 1 items 11-12.
+
+Under sp each rank runs `forward(sp=True)` on its slice of the window and
+takes `masked_ce_loss` over it by global t, its numerator local and its
+count global, so the sum of the losses over the sp group is the window's;
+under pp each rank runs its GPipe stage (`train/pipeline.py`) and the last
+stage takes the loss.  In both the gradients (and the loss) are partial:
+one all-reduce over the gradient group sums them over sp or pp and
+averages them over dp.  Both run the plain engine, as JAX does under a
+mesh.
 """
 
 from __future__ import annotations
@@ -37,7 +44,6 @@ import torch.nn.functional as F
 
 from qpnet_tpu_torch.config import ModelConfig
 from qpnet_tpu_torch.models.qpnet import Params, forward, tree_map
-from qpnet_tpu_torch.parallel.mesh import PP
 
 # the gate's leaves: their 2R axis holds [s | t], and a tp shard takes the
 # same R/tp channels of both halves
@@ -268,16 +274,22 @@ def full_optimizer_state(mesh, opt: torch.optim.Optimizer,
 
 
 def masked_ce_loss(logits: torch.Tensor, targets: torch.Tensor,
-                   valid_len) -> torch.Tensor:
+                   valid_len, offset: int = 0,
+                   total: Optional[int] = None) -> torch.Tensor:
     """Mean cross-entropy over the last `valid_len` positions of each
-    sequence."""
+    sequence of `total` positions (default: T), of which logits hold T
+    from global position `offset` (an sp rank's slice): the sum over the
+    slice's positions divided by the count over the whole sequences, so
+    the slices' losses sum to the sequences'."""
     B, T, Q = logits.shape
+    total = T if total is None else total
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    t = torch.arange(T, device=logits.device)[None, :].expand(B, T)
+    t = offset + torch.arange(T, device=logits.device)[None, :].expand(B, T)
     valid_len = torch.as_tensor(valid_len, device=logits.device)
-    mask = (t >= T - valid_len).float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    mask = (t >= total - valid_len).float()
+    count = B * torch.clamp(valid_len, 0, total).float()
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -289,12 +301,18 @@ def batch_to_device(batch: dict, device) -> dict:
 
 
 def _loss_fn(params, cfg, batch, compute_dtype, remat, fixed_engine="xla",
-             maxd_bucket=None, tp=False):
+             maxd_bucket=None, tp=False, sp=(0, 1)):
+    """The masked loss of a forward; sp = (this rank's index, the group's
+    size) takes the loss of the rank's time slice (`masked_ce_loss`)."""
+    k, n = sp
     logits = forward(params, cfg, batch["x"], batch["h"], batch["d"],
                      compute_dtype=compute_dtype, remat=remat,
                      fixed_engine=fixed_engine, maxd_bucket=maxd_bucket,
-                     tp=tp)
-    return masked_ce_loss(logits, batch["t"], batch["valid_len"])
+                     tp=tp, sp=n > 1,
+                     x_prev=batch.get("x_prev") if k else None)
+    T_l = batch["x"].shape[1]
+    return masked_ce_loss(logits, batch["t"], batch["valid_len"], k * T_l,
+                          n * T_l)
 
 
 def resolve_fixed_engine(fixed_engine: str, cfg: ModelConfig, B: int,
@@ -320,31 +338,49 @@ def make_train_step(cfg: ModelConfig, tx: Adam, mesh: Optional[Any] = None,
     under a mesh, the global loss after the all-reduce).  fixed_engine
     "auto" resolves to "xla"; "pallas" runs K2 on each rank's rows.  Under
     a tp mesh the state is this rank's shard (`shard_train_state`), the
-    forward is `forward(tp=True)`, and "pallas" raises ValueError.
+    forward is `forward(tp=True)`; under sp it is `forward(sp=True)` on the
+    rank's time slice (the batch also holds "x_prev", as
+    `make_global_batch` gives it); under pp it is the rank's GPipe stage
+    over n_microbatches (default pp; ignored without a pp axis, as in
+    JAX).  Under tp, sp or pp "pallas" raises ValueError.
     """
-    if n_microbatches:
-        raise NotImplementedError(PP)
     world = None
     if mesh is not None:
         from qpnet_tpu_torch.parallel.distributed import require_world
         world = require_world(mesh)
     tp = world is not None and world.tp > 1
-    if tp and fixed_engine == "pallas":
+    sp = (world.sp_rank, world.sp) if world is not None else (0, 1)
+    pp = world is not None and world.pp > 1
+    if fixed_engine == "pallas" and world is not None and world.model > 1:
+        why = (f"under tp={world.tp} a rank holds n_resch/{world.tp} "
+               f"channels" if tp else
+               f"under sp={world.sp} a rank holds a slice of the window"
+               if world.sp > 1 else
+               f"under pp={world.pp} a rank runs a stage of the stack")
         raise ValueError(
             f"fixed_engine='pallas' runs the fused training kernel over the "
-            f"whole residual width, and under tp={world.tp} a rank holds "
-            f"n_resch/{world.tp} channels: use 'auto' or 'xla' (the plain "
-            f"engine, as the JAX package runs under a mesh)")
+            f"whole residual width, window and stack, and {why}: use 'auto' "
+            f"or 'xla' (the plain engine, as the JAX package runs under a "
+            f"mesh)")
+    if pp:
+        from qpnet_tpu_torch.train import pipeline as PL
+        M = PL.check_pipeline(cfg, mesh, n_microbatches)
+        PL.log_schedule(cfg, mesh, M)
 
     def step(state: TrainState, batch, maxd_bucket=None):
         B, T = batch["x"].shape
         engine = resolve_fixed_engine(fixed_engine, cfg, B, T, compute_dtype)
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
-        loss = _loss_fn(state.params, cfg, batch, compute_dtype, remat,
-                        engine, maxd_bucket if engine == "pallas" else None,
-                        tp)
-        loss.backward()
+        if pp:
+            loss = PL.pipeline_backward(state.params, cfg, batch, mesh, M,
+                                        compute_dtype, remat)
+        else:
+            loss = _loss_fn(state.params, cfg, batch, compute_dtype, remat,
+                            engine,
+                            maxd_bucket if engine == "pallas" else None, tp,
+                            sp)
+            loss.backward()
         for p in tree_leaves(state.params):
             # a leaf no output depends on (the last block's W_res) gets a
             # zero gradient, as in JAX, so Adam and the decay still step it
@@ -360,8 +396,9 @@ def make_train_step(cfg: ModelConfig, tx: Adam, mesh: Optional[Any] = None,
 
 
 def _all_reduce_mean(leaves, loss: torch.Tensor) -> torch.Tensor:
-    """Average the leaves' gradients and the loss over this rank's dp
-    group in one all-reduce of one buffer: [grads in leaf order, loss]."""
+    """Sum the leaves' gradients and the loss over this rank's gradient
+    group and divide them by dp (`all_reduce_mean_`) in one all-reduce of
+    one buffer: [grads in leaf order, loss]."""
     from qpnet_tpu_torch.parallel.distributed import all_reduce_mean_
     flat = torch.cat([p.grad.reshape(-1) for p in leaves]
                      + [loss.detach().reshape(1).to(leaves[0].grad.dtype)])

@@ -21,7 +21,10 @@ parameters agree.  Under a (dp, tp) mesh the ranks of a tp group share
 their dp index's rows; the state is sharded after init, resume or
 pretrain (`train/step.py::shard_train_state`), and each checkpoint gathers
 the shards of the lead's tp group into the JAX layout, so it loads in
-either package at any tp.
+either package at any tp.  Under sp or pp every rank holds the whole
+replicated state (the ranks of an sp group train on slices of their dp
+index's windows, those of a pp group run its GPipe stages): the lead
+writes it as at dp, and the replicas' check covers every rank.
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ from qpnet_tpu_torch.train.checkpoint import (adam_state_from_optax,
                                               checkpoint_backend,
                                               load_checkpoint,
                                               save_checkpoint, save_final)
-from qpnet_tpu_torch.parallel.mesh import PP
 from qpnet_tpu_torch.train.step import (TrainState, batch_to_device,
                                         full_optimizer_state, gather_params,
                                         load_optimizer_state, make_optimizer,
@@ -117,9 +119,8 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig,
                  device="cuda") -> TrainState:
     """Train on the wav/h5 pairs of two lists (see `train_loop`).  Under a
     mesh each host batches its slice of the lists (module docstring);
-    batch_size divides over dp = ranks / tp."""
-    if n_microbatches:
-        raise NotImplementedError(PP)
+    batch_size divides over dp = ranks / (tp * sp * pp), and a pp mesh
+    splits each dp shard's rows into n_microbatches (default pp)."""
     from qpnet_tpu_torch.data.stats import load_scaler
     local_bs, seed = tcfg.batch_size, tcfg.seed
     if mesh is not None:
@@ -128,14 +129,15 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig,
         if tcfg.batch_size % w.dp:
             raise ValueError(f"global batch_size {tcfg.batch_size} must "
                              f"divide over the dp axis ({w.dp} of "
-                             f"{w.size} ranks at tp={w.tp})")
+                             f"{w.size} ranks at tp={w.tp} sp={w.sp} "
+                             f"pp={w.pp})")
         local_bs = tcfg.batch_size // w.n_hosts
         wav_list = PD.host_shard_list(wav_list)
         feat_list = PD.host_shard_list(feat_list)
         seed = tcfg.seed + PD.process_index()
         logging.info("host %d/%d: %d utterances, host batch %d over %d "
-                     "ranks (tp=%d)", w.host_id, w.n_hosts, len(wav_list),
-                     local_bs, w.local_ranks, w.tp)
+                     "ranks (tp=%d sp=%d pp=%d)", w.host_id, w.n_hosts,
+                     len(wav_list), local_bs, w.local_ranks, w.tp, w.sp, w.pp)
     scaler = load_scaler(stats_path, feature_type)
     batches = background(2)(train_window_generator)(
         wav_list, feat_list, cfg, feat_transform=scaler.transform,
@@ -143,13 +145,15 @@ def run_training(cfg: ModelConfig, tcfg: TrainConfig,
         batch_size=local_bs, max_length=tcfg.max_length,
         f0_threshold=tcfg.f0_threshold, shuffle=True, seed=seed, loop=True)
     return train_loop(cfg, tcfg, batches, expdir, resume=resume,
-                      pretrain=pretrain, device=device, mesh=mesh)
+                      pretrain=pretrain, device=device, mesh=mesh,
+                      n_microbatches=n_microbatches)
 
 
 def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
                expdir: str, resume: Optional[str] = None,
                pretrain: Optional[str] = None,
-               device="cuda", mesh=None) -> TrainState:
+               device="cuda", mesh=None,
+               n_microbatches: Optional[int] = None) -> TrainState:
     """Run iterations up to `tcfg.iters` over the batcher's numpy batches;
     returns the final state (parameters and optimizer on `device`).  Under
     a mesh the batches are this rank's host's, the device is the rank's,
@@ -178,13 +182,14 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
     T = padded_shape(tcfg.max_length, cfg.upsampling_factor)
     remat_threshold = 130_000 if compute_dtype == torch.float32 else 260_000
     per_rank = max(1, tcfg.batch_size // (mesh.dp if mesh else 1))
-    remat = per_rank * T > remat_threshold
+    remat = per_rank * T // (mesh.sp if mesh else 1) > remat_threshold
     if compute_dtype == torch.bfloat16:
         logging.info("mixed precision: bf16 products/activations, "
                      "f32 master weights and loss accumulation")
     step_fn = make_train_step(cfg, tx, mesh=mesh, remat=remat,
                               compute_dtype=compute_dtype,
-                              fixed_engine=tcfg.fixed_engine)
+                              fixed_engine=tcfg.fixed_engine,
+                              n_microbatches=n_microbatches)
     engine = resolve_fixed_engine(tcfg.fixed_engine, cfg, tcfg.batch_size, T,
                                   compute_dtype)
     if engine == "pallas":
@@ -324,24 +329,28 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
 
 
 def _check_replicas(state: TrainState, world, mesh) -> None:
-    """Log the dp all-reduce's cost, and raise unless the replicas agree:
-    a float64 checksum of the replicated leaves, gathered over every rank,
-    and under tp one of this rank's sharded leaves, gathered over its dp
-    group."""
+    """Log the gradient all-reduce's cost, and raise unless the replicas
+    agree: a float64 checksum of the replicated leaves, gathered over every
+    rank (the dp replicas, and the ranks of each sp or pp group, which hold
+    the whole state), and under tp one of this rank's sharded leaves,
+    gathered over its gradient group."""
     from qpnet_tpu_torch.parallel import distributed as PD
     spec = tree_leaves(sharded_axes(mesh, state.params))
     sums = [0.0, 0.0]
     for p, axis in zip(tree_leaves(state.params), spec):
         sums[axis is not None] += float(p.detach().double().sum())
     PD.check_agreed(sums[0], "the replicated parameters' checksum")
-    what = "parameter checksum %.17g equal on the %d ranks" % (
-        sums[0] + sums[1], world.size)
+    what = "parameter checksum %.17g equal on the %d ranks (dp=%d sp=%d " \
+        "pp=%d)" % (sums[0] + sums[1], world.size, world.dp, world.sp,
+                    world.pp)
     if world.tp > 1:
         PD.check_agreed(sums[1], "the sharded parameters' checksum",
                         dp_only=True)
         what = ("replicated parameters' checksum %.17g equal on the %d "
-                "ranks, this shard's %.17g on its %d dp ranks" % (
-                    sums[0], world.size, sums[1], world.dp))
+                "ranks, this shard's %.17g on its %d gradient-group ranks "
+                "(dp=%d sp=%d)" % (sums[0], world.size, sums[1],
+                                   world.size // world.tp, world.dp,
+                                   world.sp))
     logging.info("dp: %d gradient all-reduces over %s, %.3f ms each (host "
                  "clock); %s", world.reduces, world.grad_backend,
                  world.reduce_seconds / max(world.reduces, 1) * 1e3, what)

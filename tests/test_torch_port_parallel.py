@@ -60,9 +60,11 @@ def test_mesh_make_mesh_and_shard_batch():
     # tp is ported (tests/test_torch_port_tp.py): it must divide the mesh
     with pytest.raises(ValueError, match="tp=2 must divide"):
         PM.make_mesh(1, "cpu", tp=2)
-    for kw, item in (({"sp": 2}, "item 11"), ({"pp": 2}, "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            PM.make_mesh(1, "cpu", **kw)
+    # so are sp and pp (tests/test_torch_port_sp.py, test_torch_port_pp.py)
+    for axis in ("sp", "pp"):
+        with pytest.raises(ValueError,
+                           match=f"{axis}=2 must divide the 1-device mesh"):
+            PM.make_mesh(1, "cpu", **{axis: 2})
     x = np.arange(12).reshape(4, 3)
     shards = PM.shard_batch(Mesh(["cpu"] * 2), {"x": x, "valid_len": 5})
     assert [s["x"].tolist() for s in shards] == [x[:2].tolist(),

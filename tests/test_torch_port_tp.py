@@ -78,9 +78,10 @@ def test_mesh_has_a_tp_axis():
     with pytest.raises(ValueError, match="must divide"):
         PM.make_mesh(1, "cpu", tp=2)
     assert PM.make_mesh(1, "cpu", tp=1).tp == 1
-    for kw, item in (({"sp": 2}, "item 11"), ({"pp": 2}, "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in ({"sp": 2}, {"pp": 2}):
+        with pytest.raises(ValueError, match="must divide"):
             PM.make_mesh(1, "cpu", **kw)
+    assert PM.make_mesh(1, "cpu", tp=1, sp=1, pp=1).axis_names == ("dp",)
 
 
 @pytest.mark.parametrize("tp", [2, 4, 8])
@@ -261,15 +262,19 @@ def test_tp_run_resumes_a_tp1_checkpoint(corpus, tmp_path, one_thread_ranks):
 @pytest.mark.parametrize("extra,err,match", [
     (["--tp", "3", "--n_devices", "4"], ValueError, "must divide the 4"),
     (["--tp", "2", "--n_devices", "2", "--batch_size", "3"], None, None),
-    (["--sp", "2"], NotImplementedError, "Queue 1 item 11"),
-    (["--pp", "2"], NotImplementedError, "Queue 1 item 12"),
-    (["--pp_microbatches", "2"], NotImplementedError, "Queue 1 item 12"),
+    (["--sp", "4", "--n_devices", "4"], ValueError,
+     "30 frames should be divisible by 4"),
+    (["--pp", "3"], ValueError, "pp=3 must divide the 4-block stack"),
+    (["--pp", "2", "--pp_microbatches", "3"], ValueError,
+     "per-dp-shard batch 2//1 must split into 3 microbatches"),
 ], ids=["tp3-of-4", "tp-batch-indivisible-by-dp1", "sp", "pp",
         "microbatches"])
 def test_cli_rejects_what_does_not_fit(corpus, tmp_path, extra, err, match):
-    """tp must divide a host's ranks; sp, pp and microbatches still raise,
-    naming their ROADMAP items.  batch_size divides over dp, not over the
-    ranks: 3 rows at (dp=1, tp=2) are accepted by the layout."""
+    """tp must divide a host's ranks; sp must divide the window's frames
+    (JAX's device_put words), pp the block count and the microbatches a dp
+    shard's rows (JAX's pipeline words), all before model.conf is written.
+    batch_size divides over dp, not over the ranks: 3 rows at (dp=1,
+    tp=2) are accepted by the layout."""
     from qpnet_tpu_torch.bin import qpnet_train as cli
     args = cli.get_arguments(train_argv(corpus, str(tmp_path), *extra))
     if err is None:

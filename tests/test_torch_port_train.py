@@ -143,14 +143,21 @@ def test_train_step_matches_jax(engine, wd):
 
 def test_step_rejects_multi_device_and_eval_step():
     """A dp mesh needs the dp world it spans (one process per rank:
-    tests/test_torch_port_parallel.py); GPipe microbatches are pp's."""
+    tests/test_torch_port_parallel.py); GPipe microbatches without a pp
+    axis are ignored, as in JAX (tests/test_torch_port_pp.py)."""
     from qpnet_tpu_torch.parallel import Mesh
     _, pt, _, cfg = carried(4)
     with pytest.raises(ValueError, match="dp world"):
         TS.make_train_step(cfg, TS.make_optimizer(), mesh=Mesh(["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        TS.make_train_step(cfg, TS.make_optimizer(), n_microbatches=2)
     b = TS.batch_to_device(make_batch(cfg, 1, 120, 0), "cpu")
+    losses = []
+    for M in (None, 2):
+        params = TQ.tree_map(lambda t: t.detach().clone(), pt)
+        tx = TS.make_optimizer()
+        step = TS.make_train_step(cfg, tx, n_microbatches=M)
+        _, loss = step(TS.TrainState(params, tx.init(params), 0), b)
+        losses.append(float(loss))
+    assert losses[0] == losses[1]
     loss = TS.make_eval_step(cfg)(pt, b)
     ref = TS.masked_ce_loss(TQ.forward(pt, cfg, b["x"], b["h"], b["d"]),
                             b["t"], b["valid_len"])
@@ -411,26 +418,24 @@ def test_cli_defaults_to_cuda(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--n_devices", "2"], ["--tp", "2"], ["--sp", "2"], ["--pp", "2"],
+    ["--n_devices", "2"], ["--tp", "2"], ["--sp", "2"],
+    ["--pp", "2", "--batch_size", "2"],
     ["--coordinator", "localhost:1234"], ["--n_hosts", "2"],
     ["--host_id", "0"]])
 def test_cli_rejects_what_is_not_ported(corpus, tmp_path, extra, monkeypatch):
-    """sp and pp still raise, naming their ROADMAP items.  dp and tp are
-    ported: --n_devices, and --tp (a host runs max(n_devices, tp) ranks),
-    with --device cuda need that many cards (asked for one more than the
-    host has: ValueError; CPU ranks: tests/test_torch_port_multihost.py
-    and tests/test_torch_port_tp.py), and a lone --coordinator, --n_hosts
-    or --host_id is a single-host run, as in the JAX CLI
-    (initialize_multihost returns False)."""
+    """dp, tp, sp and pp are ported: --n_devices, and --tp (a host runs
+    max(n_devices, tp*sp*pp) ranks), with --device cuda need that many
+    cards (asked for one more than the host has: ValueError; CPU ranks:
+    tests/test_torch_port_multihost.py and tests/test_torch_port_tp.py);
+    --sp 2 and --pp 2 (2 GPipe microbatches of the 2-window batch) train
+    on 2 CPU ranks (tests/test_torch_port_sp.py, test_torch_port_pp.py);
+    and a lone --coordinator, --n_hosts or --host_id is a single-host run,
+    as in the JAX CLI (initialize_multihost returns False)."""
     from qpnet_tpu_torch.bin import qpnet_train as cli
     for k in ("QPNET_COORDINATOR", "QPNET_NUM_HOSTS", "QPNET_HOST_ID"):
         monkeypatch.delenv(k, raising=False)
-    item = {"--sp": "11", "--pp": "12"}.get(extra[0])
     argv = train_argv(corpus, str(tmp_path), "--device", "cpu", *extra)
-    if item:
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-            cli.main(argv)
-    elif extra[0] in ("--n_devices", "--tp"):
+    if extra[0] in ("--n_devices", "--tp"):
         more = max(2, torch.cuda.device_count() + 1)
         with pytest.raises(ValueError, match=f"{more} cuda devices requested"):
             cli.main(argv + [extra[0], str(more), "--device", "cuda"])
