@@ -68,7 +68,7 @@ Phases, each reported on its own line; any failure exits non-zero:
      agreement >= 0.98; a bf16 argmax run replayed through the forward
      agrees on >= 0.85 of its first 40 samples; then scan ms/step at B=8
      and 20 in f32, bf16 and int8_weights (median, lowest and highest of
-     5 calls of one frame each) beside K1's us/step;
+     3 calls of one frame each) beside K1's us/step;
  13. validation over in-memory windows (`qpnet_validate.validation_loss`
      equal to the mean of `make_eval_step`'s losses; two appends of the
      result file read back), and a synthetic reference state_dict at the
@@ -76,13 +76,19 @@ Phases, each reported on its own line; any failure exits non-zero:
      `convert_state_dict`'s bit for bit, loaded onto the card and decoded
      for 2 frames through K1 (launched, outputs finite);
  14. `tools/serve_soak.run_soak` on the default network, bf16, 8 streams,
-     half a minute of 1.0 s utterances: ok, completions, K1 launched; its
+     a quarter of a minute of 1.0 s utterances: ok, completions, K1
+     launched; its
      summary JSON, prewarmed group sizes and chunk latencies;
- 15. WORLD analysis on the card (plain PyTorch, no kernel of its own) at
-     the port's AcousticConfig (22,050 Hz, fftl 1024, mcep 34, alpha
-     0.455, 5 ms, harvest 40-400 Hz) on synthetic voiced 3 s and 10 s
-     utterances: `WorldAnalyzer.extract_all` queued without a sync
-     (`torch.cuda.set_sync_debug_mode("error")`), its F0 held to the host
+ 15. WORLD analysis on the card at the port's AcousticConfig (22,050 Hz,
+     fftl 1024, mcep 34, alpha 0.455, 5 ms, harvest 40-400 Hz) on
+     synthetic voiced 3 s and 10 s utterances, its sequential stages
+     through the kernels W1-W4 (`ops/world_kernel.py`: pooling, Viterbi,
+     DIO's contour walks, smoothing): each kernel against its plain
+     version bit for bit on the inputs the passes gave it (recorded at the
+     wrappers), timed beside it, its bound and (W4) a grouped conv1d;
+     `WorldAnalyzer.extract_all` queued without a sync
+     (`torch.cuda.set_sync_debug_mode("error")`), the kernels' launches
+     counted over that pass, its F0 held to the host
      analysis with the JAX package's gates (voicing agreement > 0.85, both
      voiced > 0.4, median |dF0| < 1 Hz, > 0.9 within 10 Hz); the device
      spectral stages fed the host F0 against the host's (CheapTrick median
@@ -93,7 +99,10 @@ Phases, each reported on its own line; any failure exits non-zero:
      package's own gate inputs (`dsp/world/gates.py`); ms per second of
      audio (device: median, lowest and highest of 5 passes after a
      warm-up, each split by stage from its own CUDA events; host once),
-     CUDA kernels per utterance, idle share, peak memory; then K1 held
+     CUDA kernels per utterance, idle share, peak memory; the same with
+     `f0_analyzer="dio"` (device DIO and StoneMask, W3) on the 3 s
+     utterance, its F0 on the same gates against the host's dio and
+     stonemask, 3 passes timed; then K1 held
      against its twins in forced mode at the shape `vocode` gives it (B=1,
      the utterance's maxd bucket, 4 frames around its largest d), and
      `Vocoder(device="cuda").vocode` of the 3 s utterance as int16 PCM on
@@ -480,6 +489,7 @@ def main() -> int:
         from qpnet_tpu_torch.ops import _build
         from qpnet_tpu_torch.ops import gen_kernel as K
         from qpnet_tpu_torch.ops import train_kernel as TK
+        from qpnet_tpu_torch.ops import world_kernel as WK
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -505,6 +515,7 @@ def main() -> int:
         libs = [f.result() for f in libs]
     K.build()
     TK.build()
+    WK.build()
     phase("build", f"{len(libs)} source(s) {names} with nvcc and {host} "
                    f"with the host C++ compiler built in "
                    f"{time.perf_counter() - t0:.2f} s")
@@ -517,11 +528,16 @@ def main() -> int:
         "decode": kernels[0]["launches"],
         "converted_decode": tools_smoke(ModelConfig(), dev, card),
         "soak": soak_smoke(dev, card)}
-    kernels[0]["launches_by_path"]["vocode"] = analysis_smoke(dev, card)
+    kernels[0]["launches_by_path"]["vocode"], wk_rows = analysis_smoke(dev,
+                                                                       card)
     (kernels[0]["launches_by_path"]["recipe"],
-     kernels[0]["launches_by_path"]["serve_ns"]) = recipe_smoke(dev, card)
-    kernels[0]["launches_by_path"]["run_synth"] = synth_recipe_smoke(dev,
-                                                                     card)
+     kernels[0]["launches_by_path"]["serve_ns"],
+     wk_fe) = recipe_smoke(dev, card)
+    kernels[0]["launches_by_path"]["run_synth"], wk_rs = synth_recipe_smoke(
+        dev, card)
+    for name, row in wk_rows.items():
+        row["launches_by_path"].update(feature_extract=wk_fe[name],
+                                       run_synth=wk_rs[name])
     dp = dp_smoke(dev, card, case4, kernels[2]["train_step_ms"]["pallas"])
     kernels[0]["launches_by_path"]["dp_decode"] = dp["k1"]
     kernels[1]["launches_by_path"] = {"serve": kernels[1]["launches"],
@@ -532,6 +548,7 @@ def main() -> int:
                                    "deep_train": d.pop("launches")}
         row["deep_net"] = d
     mp_smoke(dev, card, kernels[2]["train_step_ms"]["xla"])
+    kernels += list(wk_rows.values())
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -1307,6 +1324,10 @@ def replay_logits(params, cfg, xs, h, d):
                        h_up=h_up)[:, rf:rf + n].cpu().numpy()
 
 
+SCAN_CALLS = 3       # timed calls per type and batch (5 until the run's
+                     # time limit grew tight)
+
+
 def scan_smoke(cfg, dev, card, B=8, F=4):
     """Phase 12: the scan engine on the card, default network at full
     width, B=8, 4 frames, d varying within frames (maxd bucket 48)."""
@@ -1407,12 +1428,13 @@ def scan_smoke(cfg, dev, card, B=8, F=4):
                     return G._generate_scan(params, cfg, xs, hs, ds, steps,
                                             kmaxd, "sampling", dt, q, True,
                                             generator=gen)
-            med, lo, hi = median_ms(run)
+            med, lo, hi = median_ms(run, calls=SCAN_CALLS)
             times.append(f"{name} {med / steps:.3f} ({lo / steps:.3f}-"
                          f"{hi / steps:.3f})")
         k_us = k_ms / (4 * up) * 1e3
         phase("time", f"scan B={Bt} maxd {kmaxd} sampling, ms/step, median "
-                      f"(lowest-highest) of 5 calls of {steps} steps: "
+                      f"(lowest-highest) of {SCAN_CALLS} calls of {steps} "
+                      f"steps: "
                       f"{', '.join(times)}; K1 (bf16) {k_us:.2f} us/step at "
                       f"the same B | {card}")
     del params
@@ -1542,7 +1564,7 @@ def tools_smoke(cfg, dev, card):
     return launches
 
 
-SOAK_MINUTES = 0.5   # the tool's default is 10; the run's time limit
+SOAK_MINUTES = 0.25  # the tool's default is 10; the run's time limit
 
 
 def soak_smoke(dev, card):
@@ -1632,13 +1654,206 @@ def gate_inputs(dev):
                       f"inputs: {failed}")
 
 
+# the analysis's sequential stages as kernels (ops/world_kernel.py), each
+# with the JAX stage it replaces: no Pallas kernel, a loop that jax.jit
+# compiles into the pass's one XLA program
+WK_ROWS = {
+    "pool": ("W1 pool_kernel", "qpnet_tpu/dsp/world/jax_f0.py:193"),
+    "viterbi": ("W2 viterbi_kernel", "qpnet_tpu/dsp/world/jax_f0.py:291"),
+    "fix_contour": ("W3 fix_contour_kernel",
+                    "qpnet_tpu/dsp/world/jax_f0.py:447"),
+    "smooth": ("W4 smooth_kernel", "qpnet_tpu/dsp/world/jax_analysis.py:214"),
+}
+# the calls of each kernel in one fused pass, harvest and dio
+WK_HARVEST = {"pool": 1, "viterbi": 1, "fix_contour": 0, "smooth": 4}
+WK_DIO = {"pool": 0, "viterbi": 0, "fix_contour": 1, "smooth": 4}
+WK_SPIN_CYCLES = 20_000_000  # about 10 ms of the device, longer than the
+                             # host takes to queue the timed calls
+HBM_BYTES_S = 3.35e12        # H100 SXM device memory
+F32_OPS_S = 67e12            # H100 SXM float32 outside the tensor cores
+
+
+class wk_recording:
+    """Records [(kernel, args)] of every W1-W4 wrapper call made inside the
+    block: the analysis calls the wrappers as `world_kernel.<name>`, so
+    they are replaced by recording ones for its duration."""
+
+    def __enter__(self):
+        from qpnet_tpu_torch.ops import world_kernel as WK
+        self.WK, self.calls = WK, []
+        self.saved = {n: getattr(WK, n) for n in WK.KERNELS}
+        for n, fn in self.saved.items():
+            setattr(WK, n, self._recorder(n, fn))
+        return self.calls
+
+    def _recorder(self, name, fn):
+        def call(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+        return call
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.WK, n, fn)
+
+
+def wk_counts():
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    return {k: WK.launch_count(k) for k in WK.KERNELS}
+
+
+def wk_hold(calls, tag, errs):
+    """Each recorded call's kernel against its plain version on the same
+    inputs, bit for bit; folds each kernel's max |d| into errs."""
+    import torch
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    for name, args in calls:
+        got = getattr(WK, name)(*args)
+        want = getattr(WK, name + "_reference")(*args)
+        torch.cuda.synchronize()
+        same = (got.shape == want.shape and torch.equal(
+            got.view(torch.int32), want.view(torch.int32)))
+        d = 0.0 if same else float((got - want).abs().max())
+        check(same, f"{tag}: {WK_ROWS[name][0]} at "
+                    f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}"
+                    f" differs from its plain version, max |d| {d}")
+        errs[name] = max(errs.get(name, 0.0), d)
+    phase("analysis", f"{tag}: " + ", ".join(
+        f"{WK_ROWS[n][0]} x{sum(c == n for c, _ in calls)}"
+        for n in WK.KERNELS if any(c == n for c, _ in calls))
+        + " bit-equal to their plain versions on the pass's own inputs")
+
+
+def wk_pass(dv, x, dim, alpha, tag, want, errs):
+    """A warm-up pass of dv.extract_all with W1-W4's calls recorded and
+    held to their plain versions (wk_hold), then the pass queued under
+    sync debug mode "error" with W1-W4's launches counted (they must be
+    `want`).  Returns (the fetched features, the launches, the calls)."""
+    import torch
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    with wk_recording() as calls:
+        dv.extract_all(x, dim, alpha)
+    wk_hold(calls, tag, errs)
+    WK.reset_launch_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = dv.extract_all_async(x, dim, alpha)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = wk_counts()
+    check(counts == want, f"{tag}: W1-W4 launches {counts}, want {want}")
+    return dv.extract_all_fetch(handle), counts, calls
+
+
+def wk_work(name, args):
+    """(bytes, float32 operations) a call must move and do: each input read
+    once, the output written once (W2's back-pointers are scratch)."""
+    if name == "pool":
+        f, _, _, K = args
+        n_ch, F = f.shape
+        return 4 * (2 * n_ch * F + F * K), n_ch * F * (5 * K + 2)
+    if name == "viterbi":
+        emits, logf = args[:2]
+        F, S = emits.shape
+        return 4 * (emits.numel() + 2 * logf.numel() + F), 5 * (F - 1) * S * S
+    if name == "fix_contour":
+        F, C = args[1].shape
+        return 4 * (2 * F + F * C), 2 * F * (3 * C + 6)
+    ext, ov = args
+    F, n_off = ov.shape
+    W = ext.shape[1] - n_off
+    return 4 * (ext.numel() + ov.numel() + F * W), 2 * F * W * n_off
+
+
+def wk_device_ms(fn, calls=10):
+    """Device ms of one call of fn: the mean over `calls` calls queued
+    back to back behind a spin of the device, so that the CUDA events
+    around them time the device and not the host's queueing.  (In a whole
+    run of this script torch.profiler's trace lacks some kernels, so it
+    does not time these.)"""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(WK_SPIN_CYCLES)
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def wk_times(calls, names):
+    """Per kernel of `names`, summed over its recorded calls of one pass:
+    the kernel's device ms (wk_device_ms, on contiguous copies of the
+    inputs), the wrapper call's ms between CUDA events (the host's work
+    included; the median of 10), the plain version's ms likewise (median
+    of 3), the bound, and for W4 the device ms of one grouped conv1d
+    computing the same sums (float32, no TF32) with its largest relative
+    distance."""
+    import torch
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    out = {}
+    for name, args in calls:
+        if name not in names:
+            continue
+        r = out.setdefault(name, {"calls": 0, "ms": 0.0, "call_ms": 0.0,
+                                  "plain_ms": 0.0, "bytes": 0, "ops": 0,
+                                  "library_ms": None})
+        kernel = getattr(WK, name)
+        dense = [a.contiguous() if torch.is_tensor(a) else a for a in args]
+        r["calls"] += 1
+        r["ms"] += wk_device_ms(lambda: kernel(*dense))
+        r["call_ms"] += median_ms(lambda: kernel(*args), calls=10)[0]
+        r["plain_ms"] += median_ms(
+            lambda: getattr(WK, name + "_reference")(*args), calls=3)[0]
+        b, o = wk_work(name, args)
+        r["bytes"] += b
+        r["ops"] += o
+        if name == "smooth":
+            ext, ov = args
+
+            def conv():
+                return torch.nn.functional.conv1d(
+                    ext[None], ov[:, None, :], groups=ov.shape[0])[
+                        0, :, :ext.shape[1] - ov.shape[1]]
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                r["library_ms"] = (r["library_ms"] or 0.0) + wk_device_ms(
+                    conv)
+                ref = WK.smooth_reference(*args)
+                rel = float(((conv() - ref).abs()
+                             / ref.abs().clamp_min(1e-30)).max())
+            r["library_rel"] = max(r.get("library_rel", 0.0), rel)
+    for r in out.values():
+        t_bytes, t_ops = r["bytes"] / HBM_BYTES_S, r["ops"] / F32_OPS_S
+        r["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def wk_time_line(tag, times, card):
+    phase("time", f"{tag}, ms per pass (calls a pass): " + "; ".join(
+        f"{WK_ROWS[n][0]} x{r['calls']} device {r['ms']:.4f} (the wrapper "
+        f"call {r['call_ms']:.4f}; plain {r['plain_ms']:.3f}; bound "
+        f"{r['bound_ms']:.5f} by {r['bound_by']}"
+        + (f"; grouped conv1d device {r['library_ms']:.4f}, max rel |d| "
+           f"{r['library_rel']:.1e}" if r["library_ms"] is not None else "")
+        + ")" for n, r in times.items()) + f" | {card}")
+
+
 def analysis_smoke(dev, card):
     """Phase 15: WorldAnalyzer's fused device pass (extract_all, harvest)
     on synthetic 3 s and 10 s utterances at the port's AcousticConfig,
     held to the host analysis and to the staged device path, timed in
     whole and by stage, with its launches and peak memory; then K1 at the
     shape vocode gives it against its twins, and Vocoder.vocode of the 3 s
-    utterance, analysis then K1.  Returns vocode's K1 launches."""
+    utterance, analysis then K1.  The analysis's sequential stages run
+    through W1-W4, each held to its plain version on the passes' own
+    inputs, timed, and counted over the queued pass; the dio leg runs W3.
+    Returns (vocode's K1 launches, the W1-W4 rows of the kernels line by
+    kernel)."""
     import torch
 
     from qpnet_tpu_torch import Vocoder
@@ -1649,13 +1864,14 @@ def analysis_smoke(dev, card):
     from qpnet_tpu_torch.dsp.world import device_f0 as DF
     from qpnet_tpu_torch.models.qpnet import init_params
     from qpnet_tpu_torch.ops import gen_kernel as K
+    from qpnet_tpu_torch.ops import world_kernel as WK
     t_phase = time.perf_counter()
     ac = AcousticConfig(fs=FS, minf0=40.0, maxf0=400.0)
     dim, alpha = ac.mcep_dim, ac.mcep_alpha
     kw = dict(fs=FS, shiftms=ac.shiftms, minf0=ac.minf0, maxf0=ac.maxf0,
               fftl=ac.fftl)
     rng = np.random.default_rng(15)
-    utts = {}
+    utts, errs, paths, times = {}, {}, {}, {}
     for secs in AN_SECONDS:
         x = gates.voiced_utterance(rng, secs, FS)
         utts[secs] = x
@@ -1675,21 +1891,17 @@ def analysis_smoke(dev, card):
 
         def fused():
             return dv.extract_all(x, dim, alpha)
-        fused()
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            handle = dv.extract_all_async(x, dim, alpha)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        out = dv.extract_all_fetch(handle)
+        out, counts, calls = wk_pass(dv, x, dim, alpha, f"{tag} (harvest)",
+                                     WK_HARVEST, errs)
+        paths[f"analysis_{secs:g}s"] = counts
         F = len(f0_h)
         check(out["f0"].shape == (F,) and out["mcep"].shape == (F, dim + 1)
               and out["codeap"].shape == (F, 2) and out["npow"].shape == (F,)
               and all(np.isfinite(v).all() for v in out.values()),
               f"{tag}: fused outputs' shapes and finiteness")
         phase("analysis", f"{secs:g} s, {F} frames: extract_all queued with "
-                          f"no sync; fused device F0 against the host: "
+                          f"no sync, W1-W4 launches {counts}; fused device "
+                          f"F0 against the host: "
                           + f0_gates(out["f0"], f0_h, tag))
 
         # the device spectral stages against the host's, given the host F0
@@ -1783,8 +1995,14 @@ def analysis_smoke(dev, card):
                       f"per utterance (torch.profiler), device idle share "
                       f"{idle:.4f}; peak device memory {peak_mib(dev):.1f} "
                       f"MiB | {card}")
+        times[secs] = wk_times(calls, ("pool", "viterbi", "smooth"))
+        wk_time_line(f"W1, W2, W4 in the {secs:g} s harvest pass",
+                     times[secs], card)
         torch.cuda.empty_cache()
 
+    dio_path = f"analysis_dio_{AN_SECONDS[0]:g}s"
+    dio = dio_leg(dev, card, utts[AN_SECONDS[0]], kw, dim, alpha, errs)
+    paths[dio_path] = dio["counts"]
     gate_inputs(dev)
 
     # vocode: the 3 s utterance as int16 PCM through the default network
@@ -1810,10 +2028,14 @@ def analysis_smoke(dev, card):
     analysis_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_count()
+    WK.reset_launch_count()
     t0 = time.perf_counter()
     wav = voc.vocode(pcm)
     wall = time.perf_counter() - t0
     launches = K.launch_count
+    paths["vocode"] = wk_counts()
+    check(paths["vocode"] == WK_HARVEST, f"vocode's analysis: W1-W4 "
+                                         f"launches {paths['vocode']}")
     F = feats.shape[0]
     n_want = F * up - 1
     check(wav.shape == (n_want,) and np.isfinite(wav).all()
@@ -1829,11 +2051,80 @@ def analysis_smoke(dev, card):
                     f"{float(wav.std()):.4f}; K1 launches {launches}; wall "
                     f"{wall:.3f} s, of which analyze (the same PCM, timed "
                     f"alone just before) {analysis_s:.3f} s, so synthesis "
-                    f"through K1 {wall - analysis_s:.3f} s; peak device "
-                    f"memory {peak_mib(dev):.1f} MiB | {card}")
+                    f"through K1 {wall - analysis_s:.3f} s; W1-W4 "
+                    f"launches {paths['vocode']}; peak device memory "
+                    f"{peak_mib(dev):.1f} MiB | {card}")
     torch.cuda.empty_cache()
+    # the rows: W1, W2, W4 as the 10 s harvest pass runs them, W3 as the
+    # dio pass does
+    rows = {}
+    for name, (label, replaces) in WK_ROWS.items():
+        main = (dio_path if name == "fix_contour"
+                else f"analysis_{AN_SECONDS[-1]:g}s")
+        r = (dio["times"] if name == "fix_contour"
+             else times[AN_SECONDS[-1]])[name]
+        rows[name] = {
+            "name": label, "route": "cuda",
+            "source": "qpnet_tpu_torch/csrc/world_kernel.cu",
+            "replaces": replaces, "launches": paths[main][name],
+            "max_abs_err": errs[name], "ms": r["ms"],
+            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "main_path": main, "calls_per_pass": r["calls"],
+            "launches_by_path": {p: c[name] for p, c in paths.items()}}
     phase("analysis", f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, rows
+
+
+def dio_leg(dev, card, x, kw, dim, alpha, errs):
+    """Phase 15's dio leg: extract_all with device DIO and StoneMask on the
+    3 s utterance, W1-W4 held to their plain versions on its inputs, the
+    queued pass's launches, its F0 on the JAX package's gates against the
+    host's dio and stonemask, 3 passes timed, its CUDA kernels and idle
+    share.  Returns {"counts", "times"}."""
+    import torch
+
+    from qpnet_tpu_torch.bench import idle_share, kernel_events
+    from qpnet_tpu_torch.dsp.world import WorldAnalyzer
+    secs = len(x) / FS
+    tag = f"analysis dio {secs:g} s"
+    host = WorldAnalyzer(f0_analyzer="dio", **kw)
+    t0 = time.perf_counter()
+    f0_h, _ = host.estimate_f0(x)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dv = WorldAnalyzer(backend="jax", f0_backend="jax", device=dev,
+                       f0_analyzer="dio", **kw)
+
+    def fused():
+        return dv.extract_all(x, dim, alpha)
+    out, counts, calls = wk_pass(dv, x, dim, alpha, tag, WK_DIO, errs)
+    F = len(f0_h)
+    check(out["f0"].shape == (F,) and out["mcep"].shape == (F, dim + 1)
+          and all(np.isfinite(v).all() for v in out.values()),
+          f"{tag}: fused outputs' shapes and finiteness")
+    phase("analysis", f"{tag}, {F} frames: extract_all (device DIO and "
+                      f"StoneMask) queued with no sync, W1-W4 launches "
+                      f"{counts}; F0 against the host's dio and stonemask: "
+                      + f0_gates(out["f0"], f0_h, tag))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fused()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    events = kernel_events(fused)
+    idle = idle_share([(ts, ts + dur) for _, ts, dur in events])
+    phase("time", f"{tag}: device (fused extract_all, 3 passes after a "
+                  f"warm-up, median (lowest-highest)) {np.median(walls):.3f} "
+                  f"({min(walls):.3f}-{max(walls):.3f}) ms = "
+                  f"{np.median(walls) / secs:.3f} ms per second of audio; "
+                  f"{len(events)} CUDA kernels per utterance, device idle "
+                  f"share {idle:.4f}; host dio and stonemask {host_ms:.3f} "
+                  f"ms (one call) | {card}")
+    times = wk_times(calls, ("fix_contour",))
+    wk_time_line(f"W3 in the {secs:g} s dio pass", times, card)
+    return {"counts": counts, "times": times}
 
 
 # --- phase 16: the recipe's workers on the card ----------------------------
@@ -1892,7 +2183,7 @@ def recipe_smoke(dev, card):
     pass on the card, qpnet_decode through K1, noise_restored) on a
     synthetic corpus, then qpnet_serve's --noise_shaping filter on 3 TCP
     streams.  Returns K1's launches on the recipe's decode and on the
-    noise-shaped serving runs."""
+    noise-shaped serving runs, and W1-W4's on the device feature_extract."""
     import shutil
     import threading
 
@@ -1919,6 +2210,7 @@ def recipe_smoke(dev, card):
     from qpnet_tpu_torch.models.qpnet import init_params
     from qpnet_tpu_torch.ops import decode_mu_law
     from qpnet_tpu_torch.ops import gen_kernel as K
+    from qpnet_tpu_torch.ops import world_kernel as WK
     from qpnet_tpu_torch.tools.evaluate import wav_metrics
     from qpnet_tpu_torch.train.checkpoint import save_final
     t_phase = time.perf_counter()
@@ -1961,7 +2253,12 @@ def recipe_smoke(dev, card):
         feature_extract.main(dev_args + ["--feature_dir",
                                          os.path.join(tmp, "warm/")])
         torch.cuda.synchronize()
+        WK.reset_launch_count()
         _, dev_s = _timed(lambda: feature_extract.main(dev_args))
+        wk_fe = wk_counts()
+        check(all(wk_fe[k] == len(paths) * n for k, n in WK_HARVEST.items()),
+              f"device feature_extract of {len(paths)} utterances: W1-W4 "
+              f"launches {wk_fe}")
         ext_mib = peak_mib(dev)
         staged = os.path.join(tmp, "staged/")
         feature_extract.main(
@@ -2006,8 +2303,9 @@ def recipe_smoke(dev, card):
                       f"workers, {host_s * 1e3 / audio_s:.3f} ms per second "
                       f"of audio (wall, spawning included); device backends "
                       f"(fused, depth 2, after a warm-up pass) "
-                      f"{dev_s * 1e3 / audio_s:.3f} ms/s; peak device memory "
-                      f"{ext_mib:.1f} MiB{io} | {card}")
+                      f"{dev_s * 1e3 / audio_s:.3f} ms/s, W1-W4 launches "
+                      f"{wk_fe}; peak device memory {ext_mib:.1f} MiB{io} | "
+                      f"{card}")
 
         # stats: the streaming scaler against one float64 batch
         feats_scp = os.path.join(tmp, "feats.scp")
@@ -2343,7 +2641,7 @@ def recipe_smoke(dev, card):
         if stand_in:
             del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
     phase("recipe", f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
-    return recipe_launches, serve_launches
+    return recipe_launches, serve_launches, wk_fe
 
 
 # --- phase 17: the synthetic recipe on the card -----------------------------
@@ -2361,7 +2659,8 @@ SR_FE_JOBS, SR_QP_JOBS = ["--n_jobs", "2"], ["--n_jobs", "1"]
 def synth_recipe_smoke(dev, card):
     """Phase 17: run_synth.sh's stages c f t a d s e in process, with the
     argv the port's script gives (device analysis), runFE -1 first, on the
-    default network at full width; returns K1's launches on its decodes."""
+    default network at full width; returns K1's launches on its decodes
+    and W1-W4's on its feature extraction (runFE -1 to -4)."""
     import contextlib
     import io
     import shutil
@@ -2376,6 +2675,7 @@ def synth_recipe_smoke(dev, card):
     from qpnet_tpu_torch.models.qpnet import init_params
     from qpnet_tpu_torch.ops import gen_kernel as K
     from qpnet_tpu_torch.ops import train_kernel as TK
+    from qpnet_tpu_torch.ops import world_kernel as WK
     from qpnet_tpu_torch.tools import evaluate, make_synth_corpus
     from qpnet_tpu_torch.utils.yamlconf import (read_loss_record,
                                                 read_validation_record)
@@ -2435,6 +2735,7 @@ def synth_recipe_smoke(dev, card):
                         for ln in read_txt(os.path.join(corpus, "scp",
                                                         f"{k}.scp"))) / FS
                  for k in ("synthtr", "syntheval")}
+        WK.reset_launch_count()
         stage("runFE -1", lambda: runFE.main(
             fe + ["-e", f"synthtr_{spk}.scp", "-1", spk]), exits=True)
         for set_ in ("synthtr", "syntheval"):
@@ -2448,6 +2749,9 @@ def synth_recipe_smoke(dev, card):
             check(os.path.getsize(os.path.join(
                 corpus, "hist", f"{spk}_{png}histogram.png")) > 0,
                 f"runFE -1: the {png} histogram")
+        wk_fe = wk_counts()
+        check(all(wk_fe[k] > 0 for k in ("pool", "viterbi", "smooth")),
+              f"runFE's device analysis: W1-W4 launches {wk_fe}")
 
         # t: SI training on the plain engine (runQP passes no
         # --fixed_engine, so auto resolves to it: K2 is not launched)
@@ -2572,6 +2876,7 @@ def synth_recipe_smoke(dev, card):
                        f"the decode's shape (B={h_dec.shape[0]}, maxd "
                        f"{k1_maxd}): max |dlogit| to the f64 twin "
                        f"{k1_err:.3e}; K1 launches by decode {launches}; "
+                       f"W1-W4 launches in runFE {wk_fe}; "
                        f"{n_wavs} wavs of F*up - 1 samples in the recipe's "
                        f"layout")
     for name, sc in scores.items():
@@ -2583,7 +2888,7 @@ def synth_recipe_smoke(dev, card):
         f"per iteration (CLI wall over {SR_ITERS} iterations, start-up and "
         f"h5 reads included){io_note} | {card}")
     phase("run_synth", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
-    return n_k1
+    return n_k1, wk_fe
 
 
 

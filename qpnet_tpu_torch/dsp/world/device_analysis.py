@@ -7,7 +7,8 @@ vmapped: each stage gathers its pitch-adaptive windows as one (F, slot)
 tensor from index arithmetic (the window functions are zero outside their
 per-frame support, so a fixed slot is exact), then runs one batched
 `torch.fft.rfft`.  The f0-adaptive fractional-box smoothing is a sum over
-static offsets with per-frame overlap weights.
+static offsets with per-frame overlap weights (kernel W4 of
+`ops/world_kernel.py` on the card).
 
 Constants that the host computes (the D4C band window, the anchor
 interpolation, the freqt matrix) are cached on the device, so a call
@@ -32,12 +33,13 @@ from qpnet_tpu_torch.dsp.world.d4c import (FLOOR_F0_D4C,
 from qpnet_tpu_torch.dsp.world.device_f0 import (as_signal, device_harvest,
                                                  device_dio, device_stonemask,
                                                  frame_axis, mark, rdiv)
+from qpnet_tpu_torch.ops import world_kernel
 
 
 def _linear_smoothing(spec, width_hz, fs: int, fft_size: int, kmax: int):
     """Vectorized common.linear_smoothing: per-frame fractional-box
-    convolution of width width_hz (F,), mirror-extended at the edges."""
-    half = fft_size // 2
+    convolution of width width_hz (F,), mirror-extended at the edges; the
+    sum over the 2*kmax offsets is kernel W4."""
     bin_hz = fs / fft_size
     ext = torch.cat([spec[:, 1: kmax + 1].flip(1), spec,
                      spec[:, -kmax - 1: -1].flip(1)], dim=1)
@@ -48,10 +50,7 @@ def _linear_smoothing(spec, width_hz, fs: int, fft_size: int, kmax: int):
     ov = torch.clamp(torch.minimum(hi[:, None], offsets[None, :] + 1)
                      - torch.maximum(lo[:, None], offsets[None, :]), min=0.0)
     ov = ov / torch.sum(ov, dim=1, keepdim=True)
-    out = torch.zeros_like(spec)
-    for jj, m in enumerate(range(-kmax, kmax)):
-        out = out + ov[:, jj: jj + 1] * ext[:, kmax + m: kmax + m + half + 1]
-    return out
+    return world_kernel.smooth(ext, ov)
 
 
 def _dc_correct(spec, cf0, fs: int, fft_size: int, jmax: int):

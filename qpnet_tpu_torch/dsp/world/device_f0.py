@@ -11,19 +11,18 @@ to `device`, CUDA by default), with the JAX module's stages and contracts:
   * event-interval tracks: `cummax` of masked event times gives "previous
     event", a flipped `cummin` gives "next event", and the straddling
     interval 1/(next-prev) is sampled at frame centers;
-  * candidate pooling: a stable per-frame sort over channels, then a loop
-    over channel ranks carrying the (F, K) pooled table;
+  * candidate pooling: a stable per-frame sort over channels, then the
+    walk over channel ranks carrying the (F, K) pooled table (kernel W1);
   * refinement: the StoneMask instantaneous-frequency correction as
     windowed DFTs at the 6 harmonic frequencies over a static slot;
-  * contour: the {unvoiced + K candidates} Viterbi is a loop over frames
-    with the transitions of every frame computed up front, and the
-    short-run cleanup is two index prefix scans.
+  * contour: the {unvoiced + K candidates} Viterbi (kernel W2), and the
+    short-run cleanup as two index prefix scans.
 
-The sequential stages (the Viterbi, DIO's contour scans, the pooling over
-ranks) are Python loops of small tensor ops that stay on the device: no
-value comes back to the host until the caller fetches the result.  Ties
-are broken as JAX breaks them: sorts are stable and `argmin`/`min` take
-the first index.
+The sequential stages (the pooling over ranks, the Viterbi, DIO's contour
+loops) are one launch each of `ops/world_kernel.py`'s kernels on the card,
+and their plain PyTorch versions on the CPU.  Nothing comes back to the
+host until the caller fetches the result.  Ties are broken as JAX breaks
+them: sorts are stable and `argmin`/`min` take the first index.
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ import torch
 from qpnet_tpu_torch.dsp.world.common import next_pow2
 from qpnet_tpu_torch.dsp.world.dio import (band_lowpass_responses,
                                            decimation_plan)
+from qpnet_tpu_torch.ops import world_kernel
 
 _NEG = -1e30
 _POS = 1e30
@@ -253,26 +253,12 @@ def _screen(tr, bnd, f0_floor: float, f0_ceil: float):
 def _pool_candidates(cands, spreads, agreement_threshold: float,
                      max_candidates: int):
     """Best-agreeing, ~5%-deduped candidates per frame: (F, K)
-    (jax_f0._pool_candidates; the sort is stable, as jnp.argsort is)."""
-    n_ch, F = cands.shape
+    (jax_f0._pool_candidates; the sort is stable, as jnp.argsort is, and
+    stays outside the loop over ranks, kernel W1)."""
     order = torch.argsort(spreads, dim=0, stable=True)
-    sp_sorted = torch.gather(spreads, 0, order)
-    f_sorted = torch.gather(cands, 0, order)
-    K = max_candidates
-    slots = torch.arange(K, device=cands.device)
-
-    pooled = torch.zeros((F, K), dtype=torch.float32, device=cands.device)
-    n_chosen = torch.zeros((F,), dtype=torch.int32, device=cands.device)
-    for r in range(n_ch):
-        f, sp = f_sorted[r], sp_sorted[r]
-        ok = (sp <= agreement_threshold) & (f > 0)
-        dup = torch.any(torch.abs(f[:, None] - pooled)
-                        < 0.05 * pooled.clamp_min(1e-9), dim=1)
-        take = ok & ~dup & (n_chosen < K)
-        slot = (n_chosen[:, None] == slots[None, :]).to(torch.float32)
-        pooled = pooled + torch.where(take[:, None], slot * f[:, None], 0.0)
-        n_chosen = n_chosen + take.to(torch.int32)
-    return pooled
+    return world_kernel.pool(torch.gather(cands, 0, order),
+                             torch.gather(spreads, 0, order),
+                             agreement_threshold, max_candidates)
 
 
 def _refine(x, fs: int, frame_times, pooled, f0_floor: float,
@@ -341,36 +327,14 @@ def _refine(x, fs: int, frame_times, pooled, f0_floor: float,
 def _viterbi(refined, score, transition_cost: float,
              unvoiced_cost: float):
     """Contour tracking over {unvoiced + K candidates}; returns (F,) f0
-    (jax_f0._viterbi: its forward and back-track scans as loops over
-    frames, `min` taking the first index of a tie as jnp.argmin does)."""
-    F, K = refined.shape
-    S = K + 1
-    dev = refined.device
-    emits = torch.cat([torch.full((F, 1), unvoiced_cost, device=dev),
+    (jax_f0._viterbi: its forward and back-track scans are kernel W2)."""
+    F = refined.shape[0]
+    emits = torch.cat([torch.full((F, 1), unvoiced_cost,
+                                  device=refined.device),
                        torch.where(refined > 0, 1.0 - score, 1e30)], dim=1)
     logf = torch.log(refined.clamp_min(1e-9))           # (F, K)
-    # every frame's (s, p) transition matrix at once
-    trans = torch.full((F - 1, S, S), unvoiced_cost, device=dev)
-    trans[:, 0, 0] = 0.0
-    trans[:, 1:, 1:] = transition_cost * torch.abs(
-        logf[1:, :, None] - logf[:-1, None, :])
-
-    cost = emits[0]
-    backs = []
-    for t in range(1, F):
-        best, bp = torch.min(cost[None, :] + trans[t - 1], dim=1)
-        cost = best + emits[t]
-        backs.append(bp)
-
-    # back[t] maps frame-(t+1) states to their frame-t predecessors
-    s = torch.argmin(cost).reshape(1)
-    states = [s]
-    for bp in reversed(backs):
-        s = torch.gather(bp, 0, s)
-        states.append(s)
-    states = torch.cat(states[::-1])                    # (F,)
-    return torch.where(states > 0, torch.gather(
-        refined, 1, (states - 1).clamp_min(0)[:, None])[:, 0], 0.0)
+    return world_kernel.viterbi(emits, logf, refined, transition_cost,
+                                unvoiced_cost)
 
 
 def _drop_short_runs(f0, min_frames: int):
@@ -427,27 +391,17 @@ def device_harvest(x, fs: int, n_valid=None, f0_floor: float = 71.0,
     return f0
 
 
-def _select_best_f0(prev1, prev2, cands_t, allowed_range: float):
-    """dio._select_best_f0 on a candidate vector: the candidate closest to
-    the half-step linear extrapolation, 0 when even it disagrees."""
-    reference = (prev1 * 3.0 - prev2) / 2.0
-    errors = torch.abs(reference - cands_t)
-    b = torch.argmin(errors).reshape(1)
-    fail = (torch.gather(errors, 0, b)[0] / reference.clamp_min(1e-12)
-            >= allowed_range)
-    return torch.where(fail, 0.0, torch.gather(cands_t, 0, b)[0])
-
-
 def _fix_contour_scan(f0, cands, frame_period: float, allowed_range: float,
                       f0_floor: float):
     """dio._fix_contour (WORLD FixF0Contour steps 1-4) as array ops and a
-    forward and a backward loop over frames (jax_f0._fix_contour_scan).
+    forward and a backward walk over frames, kernel W3
+    (jax_f0._fix_contour_scan).
 
     Steps 1-2 (erode discontinuities, require a fully-voiced +-vrm/2
     window) are sliding-window masks.  Steps 3-4 (re-extend each voiced
     section forward/backward one frame at a time, accepting the band
     candidate nearest the extrapolated contour) carry (prev2, prev1,
-    alive, was_gap) through the loops; the comments of the JAX scan give
+    alive, was_gap) through the walks; the comments of the JAX scan give
     the host walk's semantics they reproduce.
 
     cands: (C, F) per-band candidates (0 where invalid)."""
@@ -472,41 +426,7 @@ def _fix_contour_scan(f0, cands, frame_period: float, allowed_range: float,
     keep = torch.cat([ones, window_ok, ones])
     step2 = torch.where(keep, step1, 0.0)
 
-    cands_t = cands.T                                   # (F, C)
-    inside = step2 > 0.0
-    zero = torch.zeros((), device=dev)
-    false = torch.zeros((), dtype=torch.bool, device=dev)
-
-    # forward: an extension chain that survives its gap overwrites the
-    # next section's first frame (the host loop's last write lands there)
-    prev2, prev1, alive, was_gap = zero, zero, false, false
-    out = []
-    for t in range(n):
-        v_ext = _select_best_f0(prev1, prev2, cands_t[t], allowed_range)
-        overwrite = inside[t] & was_gap & alive
-        can = ~inside[t] & alive & (prev1 > 0.0)
-        v = torch.where(inside[t], torch.where(overwrite, v_ext, step2[t]),
-                        torch.where(can, v_ext, 0.0))
-        alive = inside[t] | (can & (v_ext > 0.0))
-        prev2, prev1, was_gap = prev1, v, ~inside[t]
-        out.append(v)
-    step3 = torch.stack(out)
-
-    # backward: overwrites forward fills while it succeeds and writes its
-    # terminating 0; section frames are never overwritten going backward
-    prev2, prev1, alive = zero, zero, false
-    out = []
-    for t in range(n - 1, -1, -1):
-        can = ~inside[t] & alive & (prev1 > 0.0)
-        v_ext = _select_best_f0(prev1, prev2, cands_t[t], allowed_range)
-        v = torch.where(can, v_ext, step3[t])
-        alive = inside[t] | (can & (v_ext > 0.0))
-        prev2, prev1 = prev1, v
-        out.append(v)
-    out = torch.stack(out[::-1])
-    # the host backward loop's bound for the first section is limit=1:
-    # frame 0 is never written
-    return torch.cat([step3[:1], out[1:]])
+    return world_kernel.fix_contour(step2, cands.T, allowed_range)
 
 
 def device_dio(x, fs: int, n_valid=None, f0_floor: float = 71.0,

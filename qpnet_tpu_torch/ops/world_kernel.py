@@ -1,0 +1,325 @@
+"""The device WORLD analysis's sequential stages as CUDA kernels (W1-W4),
+each beside its plain PyTorch version.
+
+Under `jax.jit` the JAX package compiles each of these stages into the
+analysis pass's one XLA program; run eagerly, each is a Python loop of
+small tensor ops that queues thousands of CUDA kernels a pass.  Here each
+is one launch of a kernel of `csrc/world_kernel.cu` (see the note there
+for each kernel's design and bound):
+
+  W1 `pool`: harvest's candidate pooling over channel ranks
+     (qpnet_tpu/dsp/world/jax_f0.py::_pool_candidates, its fori_loop);
+  W2 `viterbi`: harvest's contour Viterbi, forward and back-track
+     (jax_f0.py::_viterbi, its two scans);
+  W3 `fix_contour`: DIO's FixF0Contour steps 3-4, the forward and the
+     backward extension loops (jax_f0.py::_fix_contour_scan, its scans);
+  W4 `smooth`: the fractional-box spectral smoothing over 2*kmax offsets
+     (qpnet_tpu/dsp/world/jax_analysis.py::_jax_linear_smoothing).
+
+Each wrapper runs its plain version (`*_reference`) on CPU tensors and
+launches its kernel on CUDA tensors; any other device raises ValueError.
+Nothing else selects between the two.  A kernel keeps its plain version's
+order of operations and rounding (IEEE division, no contraction, first
+index on ties), so on the card the two give the same bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+KERNELS = ("pool", "viterbi", "fix_contour", "smooth")
+MAX_POOL = 16      # W1: the most candidates a frame keeps (registers)
+MAX_STATES = 16    # W2: the most states (lanes of the warp)
+MAX_CANDS = 32     # W3: the most band candidates (lanes of the warp)
+
+# kernel launches made through the wrappers, one per call on CUDA tensors;
+# the analysis may run in a thread per device
+launch_counts = dict.fromkeys(KERNELS, 0)
+_count_lock = threading.Lock()
+
+
+def launch_count(name: str) -> int:
+    return launch_counts[name]
+
+
+def reset_launch_count() -> None:
+    with _count_lock:
+        for k in KERNELS:
+            launch_counts[k] = 0
+
+
+def _counted(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the eager loops the kernels replace)
+# ---------------------------------------------------------------------------
+
+def pool_reference(f_sorted, sp_sorted, agreement_threshold: float,
+                   max_candidates: int):
+    """W1's plain version: walk the channel ranks of (n_ch, F) candidates
+    and spreads, sorted by spread per frame, and keep per frame up to K
+    candidates that agree (spread <= threshold) and are not within 5% of
+    one already kept.  Returns (F, K)."""
+    n_ch, F = f_sorted.shape
+    K = max_candidates
+    dev = f_sorted.device
+    slots = torch.arange(K, device=dev)
+    pooled = torch.zeros((F, K), dtype=torch.float32, device=dev)
+    n_chosen = torch.zeros((F,), dtype=torch.int32, device=dev)
+    for r in range(n_ch):
+        f, sp = f_sorted[r], sp_sorted[r]
+        ok = (sp <= agreement_threshold) & (f > 0)
+        dup = torch.any(torch.abs(f[:, None] - pooled)
+                        < 0.05 * pooled.clamp_min(1e-9), dim=1)
+        take = ok & ~dup & (n_chosen < K)
+        slot = (n_chosen[:, None] == slots[None, :]).to(torch.float32)
+        pooled = pooled + torch.where(take[:, None], slot * f[:, None], 0.0)
+        n_chosen = n_chosen + take.to(torch.int32)
+    return pooled
+
+
+def viterbi_reference(emits, logf, refined, transition_cost: float,
+                      unvoiced_cost: float):
+    """W2's plain version: min-plus forward over S = K+1 states {unvoiced,
+    K candidates} with emission costs emits (F, S) and transitions
+    tc*|logf_t[s] - logf_{t-1}[p]| between candidates (unvoiced_cost to or
+    from the unvoiced state, 0 from it to itself), then the back-track;
+    `min` takes the first index of a tie, as jnp.argmin does.  Returns the
+    (F,) f0 of the best path (refined's value, 0 where unvoiced)."""
+    F, S = emits.shape
+    dev = emits.device
+    # every frame's (s, p) transition matrix at once
+    trans = torch.full((F - 1, S, S), unvoiced_cost, device=dev)
+    trans[:, 0, 0] = 0.0
+    trans[:, 1:, 1:] = transition_cost * torch.abs(
+        logf[1:, :, None] - logf[:-1, None, :])
+
+    cost = emits[0]
+    backs = []
+    for t in range(1, F):
+        best, bp = torch.min(cost[None, :] + trans[t - 1], dim=1)
+        cost = best + emits[t]
+        backs.append(bp)
+
+    # back[t] maps frame-(t+1) states to their frame-t predecessors
+    s = torch.argmin(cost).reshape(1)
+    states = [s]
+    for bp in reversed(backs):
+        s = torch.gather(bp, 0, s)
+        states.append(s)
+    states = torch.cat(states[::-1])                    # (F,)
+    return torch.where(states > 0, torch.gather(
+        refined, 1, (states - 1).clamp_min(0)[:, None])[:, 0], 0.0)
+
+
+def _select_best_f0(prev1, prev2, cands_t, allowed_range: float):
+    """dio._select_best_f0 on a candidate vector: the candidate closest to
+    the half-step linear extrapolation, 0 when even it disagrees."""
+    reference = (prev1 * 3.0 - prev2) / 2.0
+    errors = torch.abs(reference - cands_t)
+    b = torch.argmin(errors).reshape(1)
+    fail = (torch.gather(errors, 0, b)[0] / reference.clamp_min(1e-12)
+            >= allowed_range)
+    return torch.where(fail, 0.0, torch.gather(cands_t, 0, b)[0])
+
+
+def fix_contour_reference(step2, cands_t, allowed_range: float):
+    """W3's plain version: FixF0Contour steps 3-4 on the step-2 contour
+    (F,) and the band candidates cands_t (F, C), as a forward and a
+    backward loop over frames carrying (prev2, prev1, alive, was_gap); the
+    comments of jax_f0._fix_contour_scan give the host walk's semantics
+    they reproduce."""
+    n = step2.shape[0]
+    dev = step2.device
+    inside = step2 > 0.0
+    zero = torch.zeros((), device=dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+
+    # forward: an extension chain that survives its gap overwrites the
+    # next section's first frame (the host loop's last write lands there)
+    prev2, prev1, alive, was_gap = zero, zero, false, false
+    out = []
+    for t in range(n):
+        v_ext = _select_best_f0(prev1, prev2, cands_t[t], allowed_range)
+        overwrite = inside[t] & was_gap & alive
+        can = ~inside[t] & alive & (prev1 > 0.0)
+        v = torch.where(inside[t], torch.where(overwrite, v_ext, step2[t]),
+                        torch.where(can, v_ext, 0.0))
+        alive = inside[t] | (can & (v_ext > 0.0))
+        prev2, prev1, was_gap = prev1, v, ~inside[t]
+        out.append(v)
+    step3 = torch.stack(out)
+
+    # backward: overwrites forward fills while it succeeds and writes its
+    # terminating 0; section frames are never overwritten going backward
+    prev2, prev1, alive = zero, zero, false
+    out = []
+    for t in range(n - 1, -1, -1):
+        can = ~inside[t] & alive & (prev1 > 0.0)
+        v_ext = _select_best_f0(prev1, prev2, cands_t[t], allowed_range)
+        v = torch.where(can, v_ext, step3[t])
+        alive = inside[t] | (can & (v_ext > 0.0))
+        prev2, prev1 = prev1, v
+        out.append(v)
+    out = torch.stack(out[::-1])
+    # the host backward loop's bound for the first section is limit=1:
+    # frame 0 is never written
+    return torch.cat([step3[:1], out[1:]])
+
+
+def smooth_reference(ext, ov):
+    """W4's plain version: out[f, i] = sum_j ov[f, j] * ext[f, i + j] over
+    the 2*kmax offsets j in order, from the mirror-extended rows ext (F,
+    W + 2*kmax) and the per-frame box weights ov (F, 2*kmax)."""
+    n_off = ov.shape[1]
+    W = ext.shape[1] - n_off
+    out = torch.zeros((ext.shape[0], W), dtype=ext.dtype, device=ext.device)
+    for jj in range(n_off):
+        out = out + ov[:, jj: jj + 1] * ext[:, jj: jj + W]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+_loaded = []
+
+
+def _lib():
+    """The built library with its entry points typed, once per process."""
+    if not _loaded:
+        from qpnet_tpu_torch.ops import _build
+        lib = _build.load("world_kernel")
+        lib.qp_world_pool.argtypes = [_P, _P, _I, _I, _I, _F, _P, _P]
+        lib.qp_world_viterbi.argtypes = [_P, _P, _P, _I, _I, _F, _F, _P, _P,
+                                         _P]
+        lib.qp_world_fix_contour.argtypes = [_P, _P, _I, _I, _F, _P, _P]
+        lib.qp_world_smooth.argtypes = [_P, _P, _I, _I, _I, _P, _P]
+        for fn in (lib.qp_world_pool, lib.qp_world_viterbi,
+                   lib.qp_world_fix_contour, lib.qp_world_smooth):
+            fn.restype = ctypes.c_int
+        _loaded.append(lib)
+    return _loaded[0]
+
+
+def build() -> None:
+    """Compile and load the CUDA library now (otherwise at first launch)."""
+    _lib()
+
+
+def _on_card(name: str, *tensors) -> bool:
+    """False for CPU tensors (the plain version runs), True for CUDA
+    tensors (the kernel launches); raises for anything else or a mix."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on {dev}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {dev}")
+    return True
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype != torch.float32:
+        raise ValueError(f"expected float32, got {t.dtype}")
+    return t.contiguous()
+
+
+def _launch(name: str, fn, dev, *args) -> None:
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"world_kernel {name} launch failed: CUDA error "
+                           f"{err}")
+    _counted(name)
+
+
+def pool(f_sorted, sp_sorted, agreement_threshold: float,
+         max_candidates: int):
+    """W1: see pool_reference.  f_sorted, sp_sorted (n_ch, F) float32."""
+    if not _on_card("pool", f_sorted, sp_sorted):
+        return pool_reference(f_sorted, sp_sorted, agreement_threshold,
+                              max_candidates)
+    f_sorted, sp_sorted = _f32(f_sorted), _f32(sp_sorted)
+    n_ch, F = f_sorted.shape
+    K = int(max_candidates)
+    if sp_sorted.shape != f_sorted.shape or not 1 <= K <= MAX_POOL:
+        raise ValueError(f"pool: shapes {tuple(f_sorted.shape)} "
+                         f"{tuple(sp_sorted.shape)}, K={K} (1..{MAX_POOL})")
+    out = torch.empty((F, K), dtype=torch.float32, device=f_sorted.device)
+    _launch("pool", _lib().qp_world_pool, f_sorted.device,
+            f_sorted.data_ptr(), sp_sorted.data_ptr(), n_ch, F, K,
+            float(agreement_threshold), out.data_ptr())
+    return out
+
+
+def viterbi(emits, logf, refined, transition_cost: float,
+            unvoiced_cost: float):
+    """W2: see viterbi_reference.  emits (F, K+1), logf and refined (F, K)
+    float32."""
+    if not _on_card("viterbi", emits, logf, refined):
+        return viterbi_reference(emits, logf, refined, transition_cost,
+                                 unvoiced_cost)
+    emits, logf, refined = _f32(emits), _f32(logf), _f32(refined)
+    F, K = refined.shape
+    if (emits.shape != (F, K + 1) or logf.shape != (F, K) or F < 1
+            or K + 1 > MAX_STATES):
+        raise ValueError(f"viterbi: emits {tuple(emits.shape)}, logf "
+                         f"{tuple(logf.shape)}, refined {tuple(refined.shape)}"
+                         f" (at most {MAX_STATES} states)")
+    dev = emits.device
+    # back-pointers: (F-1, S) uint8, written forward, read back
+    back = torch.empty((max(F - 1, 1), K + 1), dtype=torch.uint8, device=dev)
+    f0 = torch.empty((F,), dtype=torch.float32, device=dev)
+    _launch("viterbi", _lib().qp_world_viterbi, dev, emits.data_ptr(),
+            logf.data_ptr(), refined.data_ptr(), F, K,
+            float(transition_cost), float(unvoiced_cost), back.data_ptr(),
+            f0.data_ptr())
+    return f0
+
+
+def fix_contour(step2, cands_t, allowed_range: float):
+    """W3: see fix_contour_reference.  step2 (F,), cands_t (F, C)
+    float32."""
+    if not _on_card("fix_contour", step2, cands_t):
+        return fix_contour_reference(step2, cands_t, allowed_range)
+    step2, cands_t = _f32(step2), _f32(cands_t)
+    F, C = cands_t.shape
+    if step2.shape != (F,) or not 1 <= C <= MAX_CANDS:
+        raise ValueError(f"fix_contour: step2 {tuple(step2.shape)}, cands_t "
+                         f"{tuple(cands_t.shape)} (1..{MAX_CANDS} candidates)")
+    out = torch.empty((F,), dtype=torch.float32, device=step2.device)
+    _launch("fix_contour", _lib().qp_world_fix_contour, step2.device,
+            step2.data_ptr(), cands_t.data_ptr(), F, C, float(allowed_range),
+            out.data_ptr())
+    return out
+
+
+def smooth(ext, ov):
+    """W4: see smooth_reference.  ext (F, W + 2*kmax), ov (F, 2*kmax)
+    float32; returns (F, W)."""
+    if not _on_card("smooth", ext, ov):
+        return smooth_reference(ext, ov)
+    ext, ov = _f32(ext), _f32(ov)
+    F, n_off = ov.shape
+    W = ext.shape[1] - n_off
+    if ext.shape[0] != F or W < 1:
+        raise ValueError(f"smooth: ext {tuple(ext.shape)}, ov "
+                         f"{tuple(ov.shape)}")
+    out = torch.empty((F, W), dtype=torch.float32, device=ext.device)
+    _launch("smooth", _lib().qp_world_smooth, ext.device, ext.data_ptr(),
+            ov.data_ptr(), F, W, n_off, out.data_ptr())
+    return out
