@@ -44,7 +44,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      the deep Rd10Rr3Ed4Er1 network (34 layers, random weights from seed
      0), B=7 (its reference decode batch), maxd 48, 2 frames: K1-w8a8's
      forced logits, sampled samples, rings and x equal to its twin's bit
-     for bit; K1-bf16 on phase 3's f64 gate and sampling agreement; w8a8
+     for bit; K1-bf16 on phase 3's f64 gate and sampling agreement (its
+     sampling twin over the first frame, which holds the first 40); w8a8
      against bf16 forced logits: relative RMSE < 0.10, argmax agreement >
      0.90; K1-w8a8 bit for bit against its twin at the sessions' B=8;
  10. the serving main path: `StreamingService` on the deep net at w8a8
@@ -85,7 +86,15 @@ Phases, each reported on its own line; any failure exits non-zero:
      through the kernels W1-W4 (`ops/world_kernel.py`: pooling, Viterbi,
      DIO's contour walks, smoothing): each kernel against its plain
      version bit for bit on the inputs the passes gave it (recorded at the
-     wrappers), timed beside it, its bound and (W4) a grouped conv1d;
+     wrappers), timed beside it, the earlier design's time (one warp a
+     Viterbi, one bin a thread), its bound (bytes, or
+     operations at half the fused float32 rate: the file is built
+     -fmad=false), W2's and W3's chain probe (a minimal step a frame over
+     the same chain) and (W4) a grouped conv1d; W2 and W4 also bit for bit
+     on the CPU tests' edge inputs (`ops/world_kernel_cases.py`: ties, NaN,
+     +-inf, 1e30, the tile remainders), W2 at its shared-memory capacity
+     and past it (the spill branch, kernel only: S = 16 at 15,001 and
+     6,001 frames, S = 7 at 12,001 and 11,800, four calls each);
      `WorldAnalyzer.extract_all` queued without a sync
      (`torch.cuda.set_sync_debug_mode("error")`), the kernels' launches
      counted over that pass, its F0 held to the host
@@ -180,9 +189,10 @@ Phases, each reported on its own line; any failure exits non-zero:
      of wav and h5 files): both log the same losses, the trainer's
      all-gathered parameter checksum is equal on both, only host 0 wrote
      checkpoints, the log names gloo as the gradients' backend (the ranks
-     share the card), K2 launched on each; then QPNET_PREEMPT_AFTER=3 on
-     host 0 only (plain engine, a 3,300-sample window) stops both hosts
-     at iteration 4 with checkpoint-4.pkl and no checkpoint-final.pkl.
+     share the card), K2 launched on each; beside them, started with
+     them, a second pair where QPNET_PREEMPT_AFTER=3 on host 0 only
+     (plain engine, a 3,300-sample window) stops both hosts at iteration 4
+     with checkpoint-4.pkl and no checkpoint-final.pkl.
      Walls, ms per iteration beside phase 8's one-process step, the
      all-reduce's ms per step and peak device memory per rank.  K1's
      launches go into `launches_by_path["dp_decode"]` (both branches), the
@@ -231,7 +241,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      from the float64 gradient as in phase 21; the bubble share and ms
      per step.
 Each main path (phases 4, 7, 10, 12-19) also prints its peak device memory.
-Then one JSON line describing each kernel, and as the last line
+After phase 22 a line gives the script's wall by phase beside its limit
+(TIME_LIMIT_S, 750 s on one H100).  Then one JSON line describing each kernel, and as the last line
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device, and
 imports nothing of JAX.
 """
@@ -329,6 +340,10 @@ def _install_h5_stand_in() -> bool:
 
 if os.environ.get(H5_STAND_IN_ENV) == "1":
     _install_h5_stand_in()
+
+
+T_START = time.perf_counter()
+TIME_LIMIT_S = 750   # this script's wall on one card, the build included
 
 
 def phase(name: str, msg: str) -> None:
@@ -520,34 +535,56 @@ def main() -> int:
                    f"with the host C++ compiler built in "
                    f"{time.perf_counter() - t0:.2f} s")
 
+    laps = [("start", T_START), ("build", time.perf_counter())]
+
+    def lap(label):
+        laps.append((label, time.perf_counter()))
     kernels, case4 = smoke(ModelConfig(), dev, card)
+    lap("3-5")
     kernels += train_smoke(ModelConfig(), dev, card)
+    lap("6-8")
     kernels.insert(1, deep_main(dev, card))
+    lap("9-11")
     scan_smoke(ModelConfig(), dev, card)
+    lap("12")
     kernels[0]["launches_by_path"] = {
         "decode": kernels[0]["launches"],
-        "converted_decode": tools_smoke(ModelConfig(), dev, card),
-        "soak": soak_smoke(dev, card)}
+        "converted_decode": tools_smoke(ModelConfig(), dev, card)}
+    lap("13")
+    kernels[0]["launches_by_path"]["soak"] = soak_smoke(dev, card)
+    lap("14")
     kernels[0]["launches_by_path"]["vocode"], wk_rows = analysis_smoke(dev,
                                                                        card)
+    lap("15")
     (kernels[0]["launches_by_path"]["recipe"],
      kernels[0]["launches_by_path"]["serve_ns"],
      wk_fe) = recipe_smoke(dev, card)
+    lap("16")
     kernels[0]["launches_by_path"]["run_synth"], wk_rs = synth_recipe_smoke(
         dev, card)
+    lap("17")
     for name, row in wk_rows.items():
         row["launches_by_path"].update(feature_extract=wk_fe[name],
                                        run_synth=wk_rs[name])
     dp = dp_smoke(dev, card, case4, kernels[2]["train_step_ms"]["pallas"])
+    lap("18")
     kernels[0]["launches_by_path"]["dp_decode"] = dp["k1"]
     kernels[1]["launches_by_path"] = {"serve": kernels[1]["launches"],
                                       "dp_decode": dp["w8a8"]}
     deep = deep_train_smoke(dev, card)
+    lap("19")
     for row, n, d in zip(kernels[2:], dp["k2"], deep):
         row["launches_by_path"] = {"train": row["launches"], "dp_train": n,
                                    "deep_train": d.pop("launches")}
         row["deep_net"] = d
     mp_smoke(dev, card, kernels[2]["train_step_ms"]["xla"])
+    lap("20-22")
+    phase("time", "this script's wall by phase, s (host clock; 'build' from "
+                  "this module's import on): " + ", ".join(
+                      f"{b[0]} {b[1] - a[1]:.1f}"
+                      for a, b in zip(laps, laps[1:]))
+                  + f"; in all {laps[-1][1] - T_START:.1f} (limit "
+                  f"{TIME_LIMIT_S})")
     kernels += list(wk_rows.values())
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
@@ -678,8 +715,8 @@ DEEP = "Rd10Rr3Ed4Er1"
 
 def deep_smoke(cfg, params, dev, card, B=7, F=2, maxd=48):
     """Phase 9: K1-w8a8 and K1-bf16 against their twins at the deep
-    network's full width; returns {quantize: (max |dlogit|, twin ms, args,
-    kw)} for the records of phase 11."""
+    network's full width; returns {quantize: (max |dlogit|, the sampling
+    twin's ms, args, kw, the twin's steps)} for the records of phase 11."""
     import torch
 
     from qpnet_tpu_torch import bench
@@ -710,24 +747,35 @@ def deep_smoke(cfg, params, dev, card, B=7, F=2, maxd=48):
         err, _, k_logits = forced_check(K, args, kw, xf, f"k1deep {name}")
         logits[q] = k_logits.float()
         k_s = K.generate(*args, **kw, mode="sampling")
-        # the twin takes seconds: one call, on the host clock
+        # the twin takes seconds: one call, on the host clock.  w8a8 must
+        # equal it over the whole call; bf16 is held on its first sample
+        # and first 40, so its twin runs the first frame only (a sample
+        # depends on the seed and its step, not on the call's length)
+        n_twin = n if q == "w8a8" else up
+        twin_args = args[:5] + (args[5][:n_twin // up],
+                                args[6][:n_twin // up], args[7])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r_s = K.generate_reference(*args, **kw, mode="sampling")
+        r_s = K.generate_reference(*twin_args, **dict(kw, n_steps=n_twin),
+                                   mode="sampling")
         torch.cuda.synchronize()
         twin_ms = (time.perf_counter() - t0) * 1e3
-        same = all(torch.equal(a, b) for a, b in zip(k_s, r_s))
         ks, rs = (o[0][:, 0].T.cpu().numpy() for o in (k_s, r_s))
         agree = float((ks[:, :40] == rs[:, :40]).mean())
-        phase("k1deep", f"{name} sampling {n} steps: samples, rings and x "
-                        f"equal to the twin {same}; first sample equal "
-                        f"{bool((ks[:, 0] == rs[:, 0]).all())}, 40-sample "
-                        f"agreement {agree:.3f} (twin {twin_ms:.1f} ms)")
         if q == "w8a8":
+            same = all(torch.equal(a, b) for a, b in zip(k_s, r_s))
+            held = f"samples, rings and x equal to the twin {same}"
             check(same, f"{name} sampling must equal its twin bit for bit")
+        else:
+            held = (f"the twin over the first {n_twin}: samples equal "
+                    f"{float((ks[:, :n_twin] == rs).mean()):.3f}")
+        phase("k1deep", f"{name} sampling {n} steps: {held}; first sample "
+                        f"equal {bool((ks[:, 0] == rs[:, 0]).all())}, "
+                        f"40-sample agreement {agree:.3f} (twin "
+                        f"{twin_ms:.1f} ms for {n_twin} steps)")
         check(bool((ks[:, 0] == rs[:, 0]).all()) and agree >= AGREE_MIN,
               f"{name} sampling: first sample and agreement {agree}")
-        out[q] = (err, twin_ms, args, dict(kw, mode="sampling"))
+        out[q] = (err, twin_ms, args, dict(kw, mode="sampling"), n_twin)
         del k_s, r_s
     ref, qz = logits["none"], logits["w8a8"]
     rel = float((qz - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
@@ -763,7 +811,7 @@ def deep_main(dev, card):
     deep = deep_smoke(cfg, params, dev, card)
     launches = serve_smoke(cfg, params, dev, card)
     call_ms = deep_times(cfg, params, card, deep)
-    err, twin_ms, _, kw = deep["w8a8"]
+    err, twin_ms, _, kw, _ = deep["w8a8"]
     ms, bound_ms, bound_by = call_ms["w8a8"]
     del deep, params
     torch.cuda.empty_cache()
@@ -915,7 +963,7 @@ def deep_times(cfg, params, card, deep):
             n = kw["n_steps"]
             ms, _ = bench.cuda_ms(lambda: K.generate(*args, **kw))
             bound_ms, bound_by, mb, gflop, w_us = bench.k1_bound(args, B, n, q)
-            twin = (f"plain twin {deep[q][1] / n:.3f} ms/step"
+            twin = (f"plain twin {deep[q][1] / deep[q][4]:.3f} ms/step"
                     if B != 64 else "plain twin not timed at this batch")
             phase("time", f"K1-{'w8a8' if q == 'w8a8' else 'bf16'} {DEEP} "
                           f"B={B} maxd {kw['maxd']} {n} steps: "
@@ -1670,7 +1718,19 @@ WK_DIO = {"pool": 0, "viterbi": 0, "fix_contour": 1, "smooth": 4}
 WK_SPIN_CYCLES = 20_000_000  # about 10 ms of the device, longer than the
                              # host takes to queue the timed calls
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory
-F32_OPS_S = 67e12            # H100 SXM float32 outside the tensor cores
+F32_OPS_S = 67e12            # H100 SXM float32 outside the tensor cores,
+                             # counting a fused multiply-add as two
+# world_kernel.cu is built -fmad=false: each multiply and add is its own
+# instruction, so its operations run at half the fused rate
+WK_OPS_S = F32_OPS_S / 2
+# the designs W2 and W4 replaced (one warp a Viterbi with a lane a state,
+# one bin a thread) and W1 and W3 as they were then: device ms per pass by
+# pass length, recorded by this phase on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md section 6); printed beside this run's times as a record only, never
+# put in the kernels line, which carries this run's measurements
+WK_BEFORE_MS = {3: {"pool": 0.0435, "viterbi": 0.2736, "smooth": 0.0543,
+                  "fix_contour": 0.1706},
+              10: {"pool": 0.0434, "viterbi": 0.9046, "smooth": 0.1471}}
 
 
 class wk_recording:
@@ -1702,7 +1762,16 @@ def wk_counts():
     return {k: WK.launch_count(k) for k in WK.KERNELS}
 
 
-def wk_hold(calls, tag, errs):
+def wk_bits(got, want):
+    """(got has want's shape and bits, max |got - want|)."""
+    import torch
+    torch.cuda.synchronize()
+    same = (got.shape == want.shape and torch.equal(
+        got.view(torch.int32), want.view(torch.int32)))
+    return same, 0.0 if same else float((got - want).abs().max())
+
+
+def wk_hold(calls, tag, errs, what="on the pass's own inputs"):
     """Each recorded call's kernel against its plain version on the same
     inputs, bit for bit; folds each kernel's max |d| into errs."""
     import torch
@@ -1710,10 +1779,7 @@ def wk_hold(calls, tag, errs):
     for name, args in calls:
         got = getattr(WK, name)(*args)
         want = getattr(WK, name + "_reference")(*args)
-        torch.cuda.synchronize()
-        same = (got.shape == want.shape and torch.equal(
-            got.view(torch.int32), want.view(torch.int32)))
-        d = 0.0 if same else float((got - want).abs().max())
+        same, d = wk_bits(got, want)
         check(same, f"{tag}: {WK_ROWS[name][0]} at "
                     f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}"
                     f" differs from its plain version, max |d| {d}")
@@ -1721,7 +1787,7 @@ def wk_hold(calls, tag, errs):
     phase("analysis", f"{tag}: " + ", ".join(
         f"{WK_ROWS[n][0]} x{sum(c == n for c, _ in calls)}"
         for n in WK.KERNELS if any(c == n for c, _ in calls))
-        + " bit-equal to their plain versions on the pass's own inputs")
+        + f" bit-equal to their plain versions {what}")
 
 
 def wk_pass(dv, x, dim, alpha, tag, want, errs):
@@ -1747,7 +1813,8 @@ def wk_pass(dv, x, dim, alpha, tag, want, errs):
 
 def wk_work(name, args):
     """(bytes, float32 operations) a call must move and do: each input read
-    once, the output written once (W2's back-pointers are scratch)."""
+    once, the output written once (W2's back-pointers are scratch); every
+    multiply and add counts once (W4: 2 F W n_off, at WK_OPS_S)."""
     if name == "pool":
         f, _, _, K = args
         n_ch, F = f.shape
@@ -1785,14 +1852,25 @@ def wk_device_ms(fn, calls=10):
     return start.elapsed_time(stop) / calls
 
 
+def wk_chain_ms(name, steps):
+    """Device ms of the chain probe of W2 or W3 over `steps` dependent
+    steps (world_kernel.chain_probe): the floor of that kernel's frame
+    chain on this card."""
+    import torch
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    inp = torch.rand(96, generator=torch.Generator().manual_seed(steps)).cuda()
+    return wk_device_ms(lambda: WK.chain_probe(name, steps, inp))
+
+
 def wk_times(calls, names):
     """Per kernel of `names`, summed over its recorded calls of one pass:
     the kernel's device ms (wk_device_ms, on contiguous copies of the
     inputs), the wrapper call's ms between CUDA events (the host's work
     included; the median of 10), the plain version's ms likewise (median
-    of 3), the bound, and for W4 the device ms of one grouped conv1d
-    computing the same sums (float32, no TF32) with its largest relative
-    distance."""
+    of 3), the bound, for W2 and W3 their chain probe's device ms (the
+    forward's F - 1 steps; W3's two walks, 2 F - 1), and for W4 the device
+    ms of one grouped conv1d computing the same sums (float32, no TF32)
+    with its largest relative distance."""
     import torch
     from qpnet_tpu_torch.ops import world_kernel as WK
     out = {}
@@ -1812,6 +1890,10 @@ def wk_times(calls, names):
         b, o = wk_work(name, args)
         r["bytes"] += b
         r["ops"] += o
+        if name in ("viterbi", "fix_contour"):
+            F = args[0].shape[0]
+            r["chain_ms"] = r.get("chain_ms", 0.0) + wk_chain_ms(
+                name, F - 1 if name == "viterbi" else 2 * F - 1)
         if name == "smooth":
             ext, ov = args
 
@@ -1827,20 +1909,108 @@ def wk_times(calls, names):
                              / ref.abs().clamp_min(1e-30)).max())
             r["library_rel"] = max(r.get("library_rel", 0.0), rel)
     for r in out.values():
-        t_bytes, t_ops = r["bytes"] / HBM_BYTES_S, r["ops"] / F32_OPS_S
+        t_bytes, t_ops = r["bytes"] / HBM_BYTES_S, r["ops"] / WK_OPS_S
         r["bound_ms"] = max(t_bytes, t_ops) * 1e3
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return out
 
 
-def wk_time_line(tag, times, card):
-    phase("time", f"{tag}, ms per pass (calls a pass): " + "; ".join(
-        f"{WK_ROWS[n][0]} x{r['calls']} device {r['ms']:.4f} (the wrapper "
-        f"call {r['call_ms']:.4f}; plain {r['plain_ms']:.3f}; bound "
-        f"{r['bound_ms']:.5f} by {r['bound_by']}"
-        + (f"; grouped conv1d device {r['library_ms']:.4f}, max rel |d| "
-           f"{r['library_rel']:.1e}" if r["library_ms"] is not None else "")
-        + ")" for n, r in times.items()) + f" | {card}")
+def wk_time_line(tag, secs, times, card):
+    """The kernels' device ms per pass beside the earlier design's recorded
+    time (WK_BEFORE_MS, not measured in this run), the bound (and W2's and
+    W3's chain probe) with the share of it the kernel reaches."""
+    def one(n, r):
+        floor = max(r["bound_ms"], r.get("chain_ms", 0.0))
+        of = "chain" if floor > r["bound_ms"] else "bound"
+        before = WK_BEFORE_MS.get(round(secs), {}).get(n, float("nan"))
+        return (f"{WK_ROWS[n][0]} x{r['calls']} device {r['ms']:.4f} (the "
+                f"earlier design's recorded time, not measured here, "
+                f"{before:.4f}"
+                f"; the wrapper call {r['call_ms']:.4f}; plain "
+                f"{r['plain_ms']:.3f}; bound {r['bound_ms']:.5f} by "
+                f"{r['bound_by']}"
+                + (f", chain probe {r['chain_ms']:.4f}" if "chain_ms" in r
+                   else "")
+                + f"; share of the {of} {floor / r['ms']:.3f}"
+                + (f"; grouped conv1d device {r['library_ms']:.4f}, max rel "
+                   f"|d| {r['library_rel']:.1e}"
+                   if r["library_ms"] is not None else "") + ")")
+    phase("time", f"{tag}, ms per pass (calls a pass): "
+                  + "; ".join(one(n, r) for n, r in times.items())
+                  + f" | {card}")
+
+
+# W2's and W4's edge inputs (ops/world_kernel_cases.py), held on the card:
+# (seed, F, K) for W2 (K = 6 is harvest's; F = 11703 and 5121 fill the
+# back-pointers' shared memory at S = 7 and 16), past that capacity (the
+# spill branch: S = 16 at 15001 and 6001 frames, S = 7 at 12001 and 11800,
+# each on its own seed), and (F, W, n_off) for W4 (CheapTrick's and D4C's
+# widths at 22,050 Hz, D4C at f0_ceil 1000 Hz, 16 kHz CheapTrick, and short
+# rows)
+WK_VITERBI_EDGES = [(0, 601, 6), (1, 2001, 6), (2, 200, 15), (3, 130, 2),
+                    (4, 33, 6), (5, 1, 6), (6, 2, 6), (7, 260, 8),
+                    (8, 150, 3), (9, 129, 1), (10, 11703, 6),
+                    (11, 5121, 15)]
+WK_VITERBI_SPILL = [(12, 15001, 15), (13, 12001, 6), (14, 6001, 15),
+                    (15, 11800, 6)]
+WK_SPILL_REPEATS = 4   # kernel calls a spill input, each held to the plain
+WK_SMOOTH_EDGES = [(601, 513, 20), (2001, 1025, 42), (601, 1025, 98),
+                   (257, 257, 30), (5, 7, 6), (3, 2, 1)]
+
+
+def wk_edges(errs, card):
+    """W2 and W4 bit for bit against their plain versions on the CPU
+    tests' edge inputs moved to the card (ties, NaN, +-inf, +-0, 1e30; the
+    tile remainders), W2 at the shared-memory capacity and past it (the
+    spill branch, kernel only: no pass is that long) at S = 16 and S = 7 on
+    four seeds, each spill input WK_SPILL_REPEATS times (every call equal
+    to the plain version, so to the others).  Returns the spill branch's
+    device ms on the first spill input, also printed a frame."""
+    import torch
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    from qpnet_tpu_torch.ops import world_kernel_cases as CASES
+    check(WK.viterbi_back_smem() == WK.VITERBI_BACK_SMEM,
+          f"W2's built capacity {WK.viterbi_back_smem()} != "
+          f"{WK.VITERBI_BACK_SMEM}")
+    calls = []
+    for seed, F, K in WK_VITERBI_EDGES + WK_VITERBI_SPILL:
+        arrs = CASES.viterbi_edge_inputs(seed, F, K)
+        calls.append(("viterbi", tuple(torch.from_numpy(a).cuda()
+                                       for a in arrs)
+                      + (CASES.TRANSITION_COST, CASES.UNVOICED_COST)))
+    for F, W, n_off in WK_SMOOTH_EDGES:
+        arrs = CASES.smooth_edge_inputs(F * W + n_off, F, W, n_off)
+        calls.append(("smooth", tuple(torch.from_numpy(a).cuda()
+                                      for a in arrs)))
+    spills = [WK.viterbi_spills(a[0].shape[0], a[0].shape[1] - 1)
+              for n, a in calls if n == "viterbi"]
+    check(spills == [False] * len(WK_VITERBI_EDGES)
+          + [True] * len(WK_VITERBI_SPILL), f"W2's edge inputs: spills {spills}")
+    n_edges = len(WK_VITERBI_EDGES)
+    spilled = calls[n_edges:n_edges + len(WK_VITERBI_SPILL)]
+    wk_hold(calls[:n_edges] + calls[n_edges + len(spilled):],
+            "edge inputs (ties, NaN, +-inf, 1e30, tile remainders; W2 at its "
+            "shared capacity)", errs, "on them")
+    # the spill branch: each input's plain version once, every one of
+    # WK_SPILL_REPEATS kernel calls held to it
+    for _, args in spilled:
+        want = WK.viterbi_reference(*args)
+        for i in range(WK_SPILL_REPEATS):
+            same, d = wk_bits(WK.viterbi(*args), want)
+            check(same, f"W2's spill branch at {tuple(args[0].shape)}, call "
+                        f"{i + 1}, differs from its plain version, max |d| "
+                        f"{d}")
+    phase("analysis", f"W2's spill branch: {WK_SPILL_REPEATS} calls on each "
+                      f"of {[tuple(a[0].shape) for _, a in spilled]} "
+                      f"(emits; S = 16 and 7, four seeds) bit-equal to the "
+                      f"plain version")
+    spill = spilled[0][1]
+    F, S = spill[0].shape
+    ms = wk_device_ms(lambda: WK.viterbi(*spill), calls=3)
+    phase("time", f"W2's spill branch (S = {S}, {F} frames, back-pointers "
+                  f"{(F - 1) * S} bytes in device memory): device "
+                  f"{ms:.4f} ms = {ms / F * 1e6:.1f} ns a frame | {card}")
+    return ms
 
 
 def analysis_smoke(dev, card):
@@ -1996,10 +2166,11 @@ def analysis_smoke(dev, card):
                       f"{idle:.4f}; peak device memory {peak_mib(dev):.1f} "
                       f"MiB | {card}")
         times[secs] = wk_times(calls, ("pool", "viterbi", "smooth"))
-        wk_time_line(f"W1, W2, W4 in the {secs:g} s harvest pass",
+        wk_time_line(f"W1, W2, W4 in the {secs:g} s harvest pass", secs,
                      times[secs], card)
         torch.cuda.empty_cache()
 
+    spill_ms = wk_edges(errs, card)
     dio_path = f"analysis_dio_{AN_SECONDS[0]:g}s"
     dio = dio_leg(dev, card, utts[AN_SECONDS[0]], kw, dim, alpha, errs)
     paths[dio_path] = dio["counts"]
@@ -2073,6 +2244,9 @@ def analysis_smoke(dev, card):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "main_path": main, "calls_per_pass": r["calls"],
             "launches_by_path": {p: c[name] for p, c in paths.items()}}
+        if "chain_ms" in r:
+            rows[name]["chain_ms"] = r["chain_ms"]
+    rows["viterbi"]["spill_ms"] = spill_ms
     phase("analysis", f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return launches, rows
 
@@ -2123,7 +2297,7 @@ def dio_leg(dev, card, x, kw, dim, alpha, errs):
                   f"share {idle:.4f}; host dio and stonemask {host_ms:.3f} "
                   f"ms (one call) | {card}")
     times = wk_times(calls, ("fix_contour",))
-    wk_time_line(f"W3 in the {secs:g} s dio pass", times, card)
+    wk_time_line(f"W3 in the {secs:g} s dio pass", secs, times, card)
     return {"counts": counts, "times": times}
 
 
@@ -2937,41 +3111,50 @@ def _dp_corpus(root, cfg):
     return lists[0], lists[1], stats
 
 
-def _dp_hosts(argv, env_for, timeout=300):
-    """Two `qpnet_train` processes joined as hosts 0 and 1 at a free local
-    coordinator; returns their outputs and the wall.  A process that fails
-    or outlives the timeout fails the phase; each is killed in a finally."""
+def _dp_hosts(pairs, timeout=300):
+    """Pairs of `qpnet_train` processes, each pair joined as hosts 0 and 1
+    at a free local coordinator of its own, all started together, so that
+    the pairs' start-ups overlap.  `pairs` is [(argv, env_for)]; returns
+    [(outputs, wall)] in that order, a pair's wall from the common start to
+    its last exit.  A process that fails or outlives the timeout fails the
+    phase; each is killed in a finally."""
     import socket
     import subprocess
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        coord = f"127.0.0.1:{sk.getsockname()[1]}"
     root = os.path.dirname(os.path.abspath(__file__))
     base = {k: v for k, v in os.environ.items()
             if k not in ("QPNET_PREEMPT_AFTER", "QPNET_COORDINATOR",
                          "QPNET_NUM_HOSTS", "QPNET_HOST_ID")}
     procs = []
     t0 = time.perf_counter()
+
+    def finish(p):
+        out = p.communicate(timeout=timeout)[0]
+        return out, time.perf_counter() - t0
     try:
-        for hid in range(2):
-            a = argv + ["--coordinator", coord, "--n_hosts", "2",
-                        "--host_id", str(hid)]
-            a[a.index("--config") + 1] += f".{hid}"
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", DP_WORKER.format(root=root, argv=a)],
-                env=dict(base, **env_for(hid)), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for argv, env_for in pairs:
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                coord = f"127.0.0.1:{sk.getsockname()[1]}"
+            for hid in range(2):
+                a = argv + ["--coordinator", coord, "--n_hosts", "2",
+                            "--host_id", str(hid)]
+                a[a.index("--config") + 1] += f".{hid}"
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", DP_WORKER.format(root=root, argv=a)],
+                    env=dict(base, **env_for(hid)), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+        with ThreadPoolExecutor(len(procs)) as ex:
+            done = list(ex.map(finish, procs))
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    wall = time.perf_counter() - t0
-    for hid, (p, out) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0,
-              f"dp host {hid} exited {p.returncode}:\n{out[-3000:]}")
-    return outs, wall
+    for i, (p, (out, _)) in enumerate(zip(procs, done)):
+        check(p.returncode == 0, f"dp pair {i // 2} host {i % 2} exited "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+    return [([done[i][0], done[i + 1][0]], max(done[i][1], done[i + 1][1]))
+            for i in range(0, len(done), 2)]
 
 
 def _rank_line(out):
@@ -3138,7 +3321,21 @@ def dp_train_smoke(card, step_ms):
                 "--checkpoint_interval", str(DP_ITERS), "--intervals", "1",
                 "--fixed_engine", "pallas", "--dtype", "float32",
                 "--device", "cuda", "--verbose", "1"]
-        outs, wall = _dp_hosts(argv, lambda hid: {})
+        # the preemption pair, started beside the training pair: host 0
+        # alone is preempted, and both must stop at the same iteration
+        pre = os.path.join(tmp, "preempt")
+        pre_argv = argv[:]
+        for flag, value in (("--expdir", pre),
+                            ("--config", os.path.join(tmp, "p.conf")),
+                            ("--batch_length", "2200"),
+                            ("--max_length", "3300"), ("--iters", "50"),
+                            ("--checkpoint_interval", "100"),
+                            ("--fixed_engine", "xla")):
+            pre_argv[pre_argv.index(flag) + 1] = value
+        (outs, wall), (pre_outs, pre_wall) = _dp_hosts(
+            [(argv, lambda hid: {}),
+             (pre_argv, lambda hid: {"QPNET_PREEMPT_AFTER": "3"}
+              if hid == 0 else {})])
         logged = [re.findall(r"average loss = ([0-9.]+) \(([0-9.]+) sec",
                              o) for o in outs]
         losses = [[float(v) for v, _ in lg] for lg in logged]
@@ -3171,7 +3368,8 @@ def dp_train_smoke(card, step_ms):
         ms_it = ", ".join(f"{float(s) * 1e3:.0f}" for _, s in logged[0][1:])
         phase("time", f"dp training: {wall:.3f} s for both processes "
                       f"(start-up, corpus, build cache, 4 iterations, "
-                      f"checkpoints); ms per iteration after the first "
+                      f"checkpoints; the preemption pair below ran beside "
+                      f"them); ms per iteration after the first "
                       f"(host 0's log) {ms_it} against phase 8's "
                       f"one-process kernel-engine step "
                       f"{step_ms:.3f} ms; gradient all-reduce "
@@ -3182,24 +3380,15 @@ def dp_train_smoke(card, step_ms):
                       f"{ranks[1]['peak_mib']:.1f} MiB | {card}")
 
         # preemption on host 0 only stops both at the same iteration
-        pre = os.path.join(tmp, "preempt")
-        argv = argv[:]
-        for flag, value in (("--expdir", pre), ("--batch_length", "2200"),
-                            ("--max_length", "3300"), ("--iters", "50"),
-                            ("--checkpoint_interval", "100"),
-                            ("--fixed_engine", "xla")):
-            argv[argv.index(flag) + 1] = value
-        outs, wall = _dp_hosts(argv, lambda hid: {"QPNET_PREEMPT_AFTER": "3"}
-                               if hid == 0 else {})
-        n_it = [len(re.findall(r"average loss", o)) for o in outs]
+        n_it = [len(re.findall(r"average loss", o)) for o in pre_outs]
         stopped = (os.path.exists(os.path.join(pre, "checkpoint-4.pkl"))
                    and not os.path.exists(os.path.join(pre,
                                                        "checkpoint-final.pkl"))
-                   and "preemption at iteration 4" in outs[0])
+                   and "preemption at iteration 4" in pre_outs[0])
         phase("dp", f"QPNET_PREEMPT_AFTER=3 on host 0 only (plain engine, "
                     f"3,300-sample window): iterations run {n_it}, "
                     f"checkpoint-4.pkl and no checkpoint-final.pkl: {stopped} "
-                    f"({wall:.3f} s)")
+                    f"({pre_wall:.3f} s, beside the training pair)")
         check(n_it == [4, 4] and stopped, "preemption must stop both hosts "
                                           "at iteration 4")
     finally:

@@ -21,33 +21,80 @@
 // multiply and add rounded on its own (__fmul_rn/__fadd_rn; the file is
 // built with -fmad=false as well), IEEE division, clamp_min propagating
 // NaN, and every min/argmin taking the first index of a tie with NaN
-// winning, as PyTorch's reductions do (LessOrNan).  Python scalars enter
+// winning, as PyTorch's reductions do (LessOrNan).  That order on (value,
+// index) pairs is total, so a min taken as a tree of pairwise choices picks
+// the same pair, bits and index, as the serial walk.  Python scalars enter
 // as float32, as PyTorch casts them for float32 tensors.
 //
-// Bounds on the H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores):
-//   W1, W4: bytes.  Each reads its inputs once and writes its output once
-//     (W1: 2 * n_ch * F + F * K floats, about 1.4 MB at 10 s; W4: F * (W +
-//     4 kmax) + F * W floats, 17-21 MB at 10 s), with a few operations a
-//     byte.  W1 runs a thread per frame, the K kept slots and the count in
-//     registers; neighbouring threads read neighbouring frames of one rank,
-//     so every load is coalesced.  W4 runs a thread per (frame, bin); a
-//     block stages its frame's weights and its bins' extended row in
-//     shared memory and each thread sums its 2*kmax products in order.
+// Bounds on the H100 (3.35 TB/s; float32 outside the tensor cores 67e12
+// operations/s counting a fused multiply-add as two, so 33.5e12 separate
+// multiplies or adds a second, which is what -fmad=false issues):
+//   W1: bytes (2 * n_ch * F + F * K floats, about 1.4 MB at 10 s).  A
+//     thread per frame, the K kept slots and the count in registers;
+//     neighbouring threads read neighbouring frames of one rank, so every
+//     load is coalesced.
+//   W4: bytes and operations about even (F * (W + 4 kmax) + F * W floats,
+//     17-21 MB, and 2 * F * W * 2 kmax multiplies and adds a D4C call at
+//     10 s).  Register-blocked: a thread's item is SMOOTH_R = 4
+//     consecutive bins of one frame, summed over a sliding window of the
+//     extended row held in registers, so one 16-byte shared load of 4
+//     values and one of 4 weights feed 16 products (0.125 shared loads a
+//     product, against 2 in the one-bin-a-thread design).  A block's 256
+//     threads take 256 * items consecutive (frame, bin-group) items of the
+//     flattened grid, so no block is ragged (only the grid's last); it
+//     stages only the columns of the rows they read with asynchronous
+//     copies.  The rows lie in device memory at 4-byte alignment only
+//     (W + 2 kmax is odd at W = 513 and 1025), so the copies are 4-byte
+//     cp.async into 16-byte-aligned shared rows, coalesced.  The host
+//     gives a thread 1, 2 or 4 items as the grid holds under 0.75, under
+//     1.5 or more waves of resident threads: staging and a barrier are a
+//     block's fixed cost, worth sharing on long passes, while short passes
+//     need every block they can get.  Each output's sum still runs over
+//     the offsets in order, one rounded product and one rounded add each;
+//     an item's 4 outputs are stored as one float4 where 16-byte aligned.
 //   W2, W3: the chain of F dependent steps (F = 601 at 3 s, 2001 at 10 s).
 //     Their bytes (a few floats a frame) and operations are a microsecond's
-//     work; each step waits for the one before, a few shared-memory and
-//     shuffle latencies long.  One warp per utterance: W2's lanes own the
-//     S = K + 1 states, read the previous costs from shared memory and take
-//     each min over p in order; the rows of the next 32 frames are loaded
-//     into registers while the current 32 run, so no step waits for device
-//     memory.  Back-pointers (F - 1, S) uint8 go to device memory and come
-//     back 32 frames at a time for the back-track, which lane 0 walks in
-//     shared memory.  W3's lanes hold the C band candidates of a frame; the
-//     arg-min is a shuffle reduction, and the carried (prev2, prev1, alive,
-//     was_gap) is the same in every lane, so the warp never diverges.
+//     work; each step waits for the one before.  chip_smoke.py times a
+//     probe kernel of each chain with a minimal step (chain_probe_kernel)
+//     as the measured floor.
+//     W2 (viterbi_kernel), a block of 4 warps, min-plus over S = K + 1 <= 16
+//       states.  Warps 1-3 produce: for each chunk of VIT_CH frames they
+//       copy its emission rows and logf rows into a ring of VIT_STAGES
+//       shared-memory stages with cp.async, compute its (S, S) transition
+//       costs with the plain version's expression, and hand the stage over
+//       on an mbarrier ("full"); warp 0 hands it back on another ("empty").
+//       Warp 0 runs the chain alone: P lanes a state (the largest power of
+//       two with S * P <= 32; P = 4 for S = 7), lane q of state s holding
+//       the state's running cost in a register and the NP = ceil(S / P)
+//       predecessors q * NP .. q * NP + NP - 1, so a lower lane holds lower
+//       indices.  A step broadcasts the previous costs with __shfl_sync,
+//       adds the staged transitions, takes the lane's first-index min as a
+//       tree over its positions, then the state's min over its P lanes as a
+//       butterfly of __shfl_xor_sync over blocks of lanes growing from 1,
+//       so a partner's block lies wholly below or above and a tie goes to
+//       the lower (no index compare on the chain; the index rides along),
+//       and adds the emission.  Every choice is a select, not a branch:
+//       about log2(P) + 1 shuffle latencies a frame, no shared round trip
+//       and no device memory on the chain.  Back-pointers
+//       (F - 1, S) uint8 stay in shared memory while (F - 1) * S <=
+//       VIT_BACK_SMEM (80 KiB: 11,703 frames, 58 s at 5 ms, for S = 7; 25 s
+//       for S = 16); past that they go to device memory (the wrapper's
+//       scratch), the same code with the other address space, read back
+//       after the block's barrier.  The back-track is
+//       segmented across the block: with G = 128 / S segments, thread
+//       (g, s) walks segment g from state s at its end to its start,
+//       thread 0 chains the G maps from the last frame's argmin, and
+//       thread g walks segment g once more from its known end state,
+//       writing f0: about 2 (F - 1) / G + G dependent loads instead of F.
+//     W3 (fix_contour_kernel), one warp: its lanes hold the C band
+//       candidates of a frame; the arg-min is a shuffle reduction, and the
+//       carried (prev2, prev1, alive, was_gap) is the same in every lane,
+//       so the warp never diverges.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -55,10 +102,56 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_POOL = 16;     // ops/world_kernel.py MAX_POOL
 constexpr int MAX_STATES = 16;   // MAX_STATES
 constexpr int MAX_CANDS = 32;    // MAX_CANDS
-constexpr int CHUNK = 32;        // W2: frames staged at a time
 constexpr int POOL_THREADS = 128;
 constexpr int POOL_GROUP = 8;    // W1: ranks loaded at a time
-constexpr int SMOOTH_THREADS = 256;
+constexpr int VIT_THREADS = 128;               // W2: warp 0 the chain,
+constexpr int VIT_PRODUCERS = VIT_THREADS - 32;  // warps 1-3 the producers
+constexpr int VIT_CH = 32;       // W2: frames a ring stage holds
+constexpr int VIT_STAGES = 4;    // W2: ring stages
+constexpr int VIT_BACK_SMEM = 81920;  // ops/world_kernel.py VITERBI_BACK_SMEM
+constexpr int SMOOTH_THREADS = 256;   // ops/world_kernel.py SMOOTH_THREADS
+constexpr int SMOOTH_R = 4;           // SMOOTH_R: bins an item
+constexpr int SMEM_MAX = 232448;      // shared memory a block may use
+
+// Host state kept per device, so that a launch makes no driver query:
+// whether each kernel's shared-memory limit is raised (slot 0 W4, slots
+// 2 log2(P) + SPILL W2's instantiations) and the SM count (W4's items).
+// Two threads may both set an entry; the calls are idempotent.
+constexpr int MAX_DEVICES = 64;
+constexpr int SMEM_SLOTS = 12;
+std::atomic<bool> g_smem_raised[SMEM_SLOTS][MAX_DEVICES];
+std::atomic<int> g_sms[MAX_DEVICES];
+
+// raises fn's dynamic shared-memory limit to `bytes` (the most that kernel
+// can ask for) on the current device, once per device
+cudaError_t raise_smem_once(const void* fn, int slot, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev < MAX_DEVICES;
+  if (cached && g_smem_raised[slot][dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && cached)
+    g_smem_raised[slot][dev].store(true, std::memory_order_release);
+  return err;
+}
+
+// the current device's SM count, queried once per device
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES) {
+    *sms = g_sms[dev].load(std::memory_order_acquire);
+    if (*sms > 0) return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < MAX_DEVICES)
+    g_sms[dev].store(*sms, std::memory_order_release);
+  return err;
+}
 
 // torch.clamp_min(x, lo): NaN stays NaN
 __device__ __forceinline__ float clamp_min_nan(float x, float lo) {
@@ -67,9 +160,53 @@ __device__ __forceinline__ float clamp_min_nan(float x, float lo) {
 
 // True when value v at a later index replaces the running best b of a
 // first-index min/argmin (PyTorch's LessOrNan: NaN wins, ties keep the
-// earlier index).
+// earlier index); branch-free.
 __device__ __forceinline__ bool replaces(float v, float b) {
-  return isnan(v) ? !isnan(b) : v < b;
+  return (isnan(v) & !isnan(b)) | (v < b);
+}
+
+// True when the pair (v, i) comes before (b, j) in LessOrNan's order: NaN
+// first, then by value, ties (and two NaNs) by index.
+__device__ __forceinline__ bool before(float v, int i, float b, int j) {
+  return isnan(v) ? (!isnan(b) || i < j)
+                  : (!isnan(b) && (v == b ? i < j : v < b));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n"
+               ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 mb_state;\n"
+               "mbarrier.arrive.shared::cta.b64 mb_state, [%0];\n}\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// waits until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity)
+                 : "memory");
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -133,115 +270,256 @@ pool_kernel(const float* __restrict__ f_sorted,
 }
 
 // ---------------------------------------------------------------------------
-// W2: the Viterbi, one warp
+// W2: the Viterbi, a producer-consumer block (see the note at the top)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(32)
+// lanes a state: the largest power of two with S * P <= 32
+__host__ __device__ constexpr int vit_lanes(int S) {
+  return S <= 1 ? 32 : S == 2 ? 16 : S <= 4 ? 8 : S <= 8 ? 4 : 2;
+}
+
+// predecessor positions a lane holds for every S that P serves:
+// ceil(min(16, 32 / P) / P), so q * NPOS .. q * NPOS + NPOS - 1
+__host__ __device__ constexpr int vit_positions(int P) {
+  return ((32 / P < MAX_STATES ? 32 / P : MAX_STATES) + P - 1) / P;
+}
+
+// byte offsets of W2's dynamic shared memory
+struct VitLayout {
+  size_t tr, em, lf, back, total;
+};
+
+constexpr size_t VIT_HEAD = 2 * VIT_STAGES * sizeof(uint64_t)   // barriers
+                            + (2 * VIT_THREADS + 4) * sizeof(int);
+
+__host__ __device__ constexpr VitLayout vit_layout(int F, int K, bool spill) {
+  const int S = K + 1, NPOS = vit_positions(vit_lanes(S));
+  VitLayout L{};
+  size_t o = VIT_HEAD;
+  L.tr = o;      // transitions: [stage][frame][position][lane]
+  o += (size_t)VIT_STAGES * VIT_CH * NPOS * 32 * sizeof(float);
+  L.em = o;      // emission rows: [stage][frame][state]
+  o += (size_t)VIT_STAGES * VIT_CH * S * sizeof(float);
+  L.lf = o;      // logf rows t0 - 1 .. t0 + VIT_CH - 1: [stage][row][k]
+  o += (size_t)VIT_STAGES * (VIT_CH + 1) * K * sizeof(float);
+  L.back = o;    // back-pointers [frame][state], unless they spill
+  if (!spill) o += (size_t)(F - 1) * S;
+  L.total = o;
+  return L;
+}
+
+template <int P, bool SPILL>
+__global__ void __launch_bounds__(VIT_THREADS)
 viterbi_kernel(const float* __restrict__ emits,
                const float* __restrict__ logf,
                const float* __restrict__ refined, int F, int K, float tc,
                float uc, uint8_t* back, float* __restrict__ f0) {
+  constexpr int NPOS = vit_positions(P);
   const int S = K + 1;
-  const int lane = threadIdx.x;
-  // rows of two chunks of frames, slot t % (2 * CHUNK)
-  __shared__ float s_emit[2 * CHUNK][MAX_STATES];
-  __shared__ float s_logf[2 * CHUNK][MAX_STATES];
-  __shared__ float s_cost[2][MAX_STATES];
-  __shared__ uint8_t s_back[CHUNK][MAX_STATES];
-  __shared__ float s_ref[CHUNK][MAX_STATES];
-  __shared__ int s_state[CHUNK];
+  const VitLayout L = vit_layout(F, K, SPILL);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + VIT_STAGES;
+  int* s_map = reinterpret_cast<int*>(empty + VIT_STAGES);  // [g][s]
+  int* s_end = s_map + VIT_THREADS;                         // [g]
+  int* s_last = s_end + VIT_THREADS;
+  float* ring_tr = reinterpret_cast<float*>(smem + L.tr);
+  float* ring_em = reinterpret_cast<float*>(smem + L.em);
+  float* ring_lf = reinterpret_cast<float*>(smem + L.lf);
+  uint8_t* bk = SPILL ? back : smem + L.back;
 
-  float pe[MAX_STATES], pg[MAX_STATES];   // lane's prefetched frame
-  auto fetch = [&](int t) {
-#pragma unroll
-    for (int k = 0; k < MAX_STATES; ++k) {
-      pe[k] = (t < F && k < S) ? emits[(size_t)t * S + k] : 0.0f;
-      pg[k] = (t < F && k < K) ? logf[(size_t)t * K + k] : 0.0f;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid == 0) {
+    for (int st = 0; st < VIT_STAGES; ++st) {
+      mbar_init(&full[st], VIT_PRODUCERS);
+      mbar_init(&empty[st], 32);
     }
-  };
-  auto stage = [&](int t) {
-    const int slot = t & (2 * CHUNK - 1);
-#pragma unroll
-    for (int k = 0; k < MAX_STATES; ++k) {
-      s_emit[slot][k] = pe[k];
-      s_logf[slot][k] = pg[k];
-    }
-  };
+  }
+  __syncthreads();
+  const int rows = F - 1;                       // frames 1 .. F-1 step
+  const int n_chunks = (rows + VIT_CH - 1) / VIT_CH;
 
-  fetch(lane);
-  stage(lane);
-  __syncwarp();
-  float cost = lane < S ? s_emit[0][lane] : 0.0f;
-  const int n_chunks = (F + CHUNK - 1) / CHUNK;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int tn = (c + 1) * CHUNK + lane;
-    fetch(tn);                            // the next chunk, in flight
-    const int t_end = min(F, (c + 1) * CHUNK);
-    for (int t = max(1, c * CHUNK); t < t_end; ++t) {
-      const int b = t & 1;
-      if (lane < MAX_STATES) s_cost[b][lane] = cost;
-      __syncwarp();
-      const float* gp = s_logf[(t - 1) & (2 * CHUNK - 1)];
-      const float* gt = s_logf[t & (2 * CHUNK - 1)];
-      // tot[s, p] = cost[p] + trans[s, p]; trans[0, 0] = 0, trans[0, p] =
-      // trans[s, 0] = uc, trans[s, p] = tc * |logf_t[s-1] - logf_{t-1}[p-1]|
-      // (lane 0 selects its transitions, so the warp runs one path)
-      const float lt = gt[(lane - 1) & (MAX_STATES - 1)];
-      float best = __fadd_rn(s_cost[b][0], lane == 0 ? 0.0f : uc);
-      int bp = 0;
-#pragma unroll
-      for (int p = 1; p < MAX_STATES; ++p) {
-        if (p < S) {
-          const float tr = lane == 0
-              ? uc : __fmul_rn(tc, fabsf(__fsub_rn(lt, gp[p - 1])));
-          const float v = __fadd_rn(s_cost[b][p], tr);
-          if (replaces(v, best)) { best = v; bp = p; }
+  if (tid >= 32) {
+    // producers: stage chunk c in ring stage c % VIT_STAGES
+    const int pt = tid - 32;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int st = c % VIT_STAGES, round = c / VIT_STAGES;
+      if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
+      const int t0 = 1 + c * VIT_CH, n = min(VIT_CH, F - t0);
+      float* em = ring_em + st * VIT_CH * S;
+      float* lf = ring_lf + st * (VIT_CH + 1) * K;
+      float* tr = ring_tr + st * VIT_CH * NPOS * 32;
+      for (int i = pt; i < n * S; i += VIT_PRODUCERS)
+        cp_async4(em + i, emits + (size_t)t0 * S + i);
+      for (int i = pt; i < (n + 1) * K; i += VIT_PRODUCERS)
+        cp_async4(lf + i, logf + (size_t)(t0 - 1) * K + i);
+      cp_async_wait_all();
+      asm volatile("bar.sync 1, %0;\n" :: "r"(VIT_PRODUCERS) : "memory");
+      // trans[s, p]: 0 for (0, 0), uc to or from the unvoiced state, else
+      // tc * |logf_t[s-1] - logf_{t-1}[p-1]| (the plain version's order)
+      for (int i = pt; i < n * NPOS * 32; i += VIT_PRODUCERS) {
+        const int l = i & 31, k = (i >> 5) % NPOS, f = (i >> 5) / NPOS;
+        const int s = l / P, p = l % P * NPOS + k;
+        float v = 0.0f;
+        if (s < S && p < S) {
+          if (s == 0 || p == 0)
+            v = (s == 0 && p == 0) ? 0.0f : uc;
+          else
+            v = __fmul_rn(tc, fabsf(__fsub_rn(lf[(f + 1) * K + s - 1],
+                                              lf[f * K + p - 1])));
         }
+        tr[i] = v;
       }
-      if (lane < S) {
-        cost = __fadd_rn(best, s_emit[t & (2 * CHUNK - 1)][lane]);
-        back[(size_t)(t - 1) * S + lane] = (uint8_t)bp;
-      }
+      mbar_arrive(&full[st]);
     }
-    stage(tn);            // chunk c - 1's slots: no step reads them again
-    __syncwarp();
-  }
-
-  // the last frame's state: first-index argmin of the costs
-  if (lane < MAX_STATES) s_cost[0][lane] = cost;
-  __syncwarp();
-  int s = 0;
-  if (lane == 0) {
-    float best = s_cost[0][0];
-    for (int p = 1; p < S; ++p)
-      if (replaces(s_cost[0][p], best)) { best = s_cost[0][p]; s = p; }
-  }
-  // back-track 32 frames at a time: lanes stage frame hi - lane's
-  // back-pointer row (into frame t - 1) and refined row, lane 0 walks
-  for (int hi = F - 1; hi >= 0; hi -= CHUNK) {
-    const int t = hi - lane;
-    if (t >= 0) {
+  } else {
+    // the chain: lane = s * P + q holds positions q * NPOS + k, the
+    // predecessors among them (p < S), so a lower lane holds lower indices
+    // and a tie goes to it
+    const int s = lane / P, q = lane % P;
+    const bool live = s < S;
+    const float INF = __int_as_float(0x7f800000);
+    int src[NPOS];                     // the lane holding cost[p]
 #pragma unroll
-      for (int k = 0; k < MAX_STATES; ++k) {
-        if (k < S) s_back[lane][k] = t >= 1 ? back[(size_t)(t - 1) * S + k] : 0;
-        if (k < K) s_ref[lane][k] = refined[(size_t)t * K + k];
+    for (int k = 0; k < NPOS; ++k) src[k] = min(q * NPOS + k, S - 1) * P;
+    float cost = live ? emits[s] : 0.0f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int st = c % VIT_STAGES, round = c / VIT_STAGES;
+      mbar_wait(&full[st], round & 1);
+      const int t0 = 1 + c * VIT_CH, n = min(VIT_CH, F - t0);
+      const float* em = ring_em + st * VIT_CH * S + (live ? s : 0);
+      const float* tr = ring_tr + st * VIT_CH * NPOS * 32 + lane;
+      // frame f's operands are loaded during frame f - 1's step
+      float trk[NPOS], e = em[0];
+#pragma unroll
+      for (int k = 0; k < NPOS; ++k) trk[k] = tr[k * 32];
+#pragma unroll 4
+      for (int f = 0; f < n; ++f) {
+        const int fn = min(f + 1, n - 1);
+        float trn[NPOS];
+#pragma unroll
+        for (int k = 0; k < NPOS; ++k) trn[k] = tr[(fn * NPOS + k) * 32];
+        const float en = em[fn * S];
+        float v[NPOS];
+        int ix[NPOS];
+#pragma unroll
+        for (int k = 0; k < NPOS; ++k) {
+          const float cp = __shfl_sync(FULL, cost, src[k]);
+          ix[k] = q * NPOS + k;
+          v[k] = ix[k] < S ? __fadd_rn(cp, trk[k]) : INF;  // INF never wins
+        }
+        // the lane's first-index min as a tree over its positions
+#pragma unroll
+        for (int w = 1; w < NPOS; w *= 2) {
+#pragma unroll
+          for (int k = 0; k + w < NPOS; k += 2 * w) {
+            const bool take = replaces(v[k + w], v[k]);
+            v[k] = take ? v[k + w] : v[k];
+            ix[k] = take ? ix[k + w] : ix[k];
+          }
+        }
+        // the state's min: a butterfly over its P lanes, aligned blocks of
+        // lanes growing, so the partner's block lies wholly below or above
+        // (a tie goes to the lower; the index rides along)
+        float best = v[0];
+        int bi = ix[0];
+#pragma unroll
+        for (int off = 1; off < P; off <<= 1) {
+          const float bo = __shfl_xor_sync(FULL, best, off);
+          const int io = __shfl_xor_sync(FULL, bi, off);
+          const bool take = (q & off) ? !replaces(best, bo)
+                                      : replaces(bo, best);
+          best = take ? bo : best;
+          bi = take ? io : bi;
+        }
+        cost = __fadd_rn(best, e);
+        if (live && q == 0) bk[(size_t)(t0 + f - 1) * S + s] = (uint8_t)bi;
+#pragma unroll
+        for (int k = 0; k < NPOS; ++k) trk[k] = trn[k];
+        e = en;
+      }
+      __syncwarp();
+      mbar_arrive(&empty[st]);
+    }
+    // the last frame's state: first-index argmin of the S costs
+    float b = __shfl_sync(FULL, cost, 0);
+    int bs = 0;
+    for (int s2 = 1; s2 < S; ++s2) {
+      const float v = __shfl_sync(FULL, cost, s2 * P);
+      if (replaces(v, b)) {
+        b = v;
+        bs = s2;
       }
     }
-    __syncwarp();
-    if (lane == 0) {
-      const int n = min(CHUNK, hi + 1);
-      for (int l = 0; l < n; ++l) {
-        s_state[l] = s;
-        if (hi - l >= 1) s = s_back[l][s];
-      }
-    }
-    __syncwarp();
-    if (t >= 0) {
-      const int st = s_state[lane];
-      f0[t] = st > 0 ? s_ref[lane][st - 1] : 0.0f;
-    }
-    __syncwarp();
+    if (lane == 0) *s_last = bs;
   }
+  // the back-pointers, in shared or (spilled) device memory, are visible
+  // to the whole block past this barrier
+  __syncthreads();
+
+  // the back-track in G segments of seg frames: segment g covers frames
+  // (a_g, e_g], a_g = min(g * seg, rows); back row u - 1 maps the state at
+  // frame u to the state at frame u - 1
+  const int G = VIT_THREADS / S;
+  const int seg = (rows + G - 1) / G;
+  // walk 1: thread (g1, s0) maps state s0 at e_g1 to its state at a_g1
+  int x = tid % S;
+  if (tid < G * S) {
+    const int a = min(tid / S * seg, rows), e = min(a + seg, rows);
+    for (int u = e; u > a; --u)
+      x = bk[(size_t)(u - 1) * S + x];
+    s_map[tid] = x;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int y = *s_last;
+    for (int g = G - 1; g >= 0; --g) {
+      s_end[g] = y;
+      y = s_map[g * S + y];
+    }
+  }
+  __syncthreads();
+  // walk 2: thread g < G walks segment g from its end state, writing f0
+  if (tid < G) {
+    const int a = min(tid * seg, rows), e = min(a + seg, rows);
+    x = s_end[tid];
+    for (int u = e; u > a; --u) {
+      f0[u] = x > 0 ? refined[(size_t)u * K + x - 1] : 0.0f;
+      x = bk[(size_t)(u - 1) * S + x];
+    }
+    if (tid == 0) f0[0] = x > 0 ? refined[x - 1] : 0.0f;
+  }
+}
+
+// the most shared memory viterbi_kernel<P, spill> asks for: the ring at
+// the most states P serves, and the back-pointers' capacity unless they spill
+constexpr size_t vit_smem_max(int P, bool spill) {
+  return vit_layout(1, (32 / P < MAX_STATES ? 32 / P : MAX_STATES) - 1,
+                    true).total
+         + (spill ? 0 : VIT_BACK_SMEM);
+}
+
+constexpr int log2_lanes(int P) { return P <= 1 ? 0 : 1 + log2_lanes(P / 2); }
+
+template <int P>
+int launch_viterbi(const float* emits, const float* logf,
+                   const float* refined, int F, int K, float tc, float uc,
+                   uint8_t* back, float* f0, bool spill, cudaStream_t stream) {
+  static_assert(vit_smem_max(P, false) <= SMEM_MAX, "W2's layout");
+  const size_t smem = vit_layout(F, K, spill).total;
+  if (smem > vit_smem_max(P, spill)) return (int)cudaErrorInvalidValue;
+  const void* fn = spill ? (const void*)viterbi_kernel<P, true>
+                         : (const void*)viterbi_kernel<P, false>;
+  const cudaError_t err = raise_smem_once(
+      fn, 2 * log2_lanes(P) + (spill ? 1 : 0), (int)vit_smem_max(P, spill));
+  if (err != cudaSuccess) return (int)err;
+  if (spill)
+    viterbi_kernel<P, true><<<1, VIT_THREADS, smem, stream>>>(
+        emits, logf, refined, F, K, tc, uc, back, f0);
+  else
+    viterbi_kernel<P, false><<<1, VIT_THREADS, smem, stream>>>(
+        emits, logf, refined, F, K, tc, uc, back, f0);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -262,9 +540,7 @@ __device__ __forceinline__ float select_best(float prev1, float prev2,
     const float eo = __shfl_xor_sync(FULL, e, off);
     const int io = __shfl_xor_sync(FULL, i, off);
     // LessOrNan on (value, index): the pair that PyTorch's argmin keeps
-    const bool take = isnan(eo) ? (!isnan(e) || io < i)
-                                : (!isnan(e) && (eo == e ? io < i : eo < e));
-    if (take) { e = eo; i = io; }
+    if (before(eo, io, e, i)) { e = eo; i = io; }
   }
   const float cb = __shfl_sync(FULL, cv, i);
   const bool fail = __fdiv_rn(e, clamp_min_nan(ref, 1e-12f)) >= allowed;
@@ -333,29 +609,138 @@ fix_contour_kernel(const float* __restrict__ step2,
 }
 
 // ---------------------------------------------------------------------------
-// W4: fractional-box smoothing, a thread per (frame, bin)
+// W4: fractional-box smoothing, SMOOTH_R bins a thread (see the note above)
 // ---------------------------------------------------------------------------
+
+// W4's shape for `items` items a thread: ng bin groups a frame; a block's
+// SMOOTH_THREADS * items consecutive (frame, group) items span at most
+// `rows` frames, each staged as rs floats (16-byte aligned, room for the
+// last group's window) beside its os weights
+struct SmoothLayout {
+  int ng, rows, rs, os;
+  size_t bytes;
+};
+
+__host__ __device__ inline SmoothLayout smooth_layout(int F, int W, int n_off,
+                                                      int items) {
+  SmoothLayout L;
+  L.ng = (W + SMOOTH_R - 1) / SMOOTH_R;
+  const int span = (SMOOTH_THREADS * items + L.ng - 1) / L.ng + 1;
+  L.rows = F < span ? F : span;
+  L.rs = (SMOOTH_R * L.ng + n_off + 3 + 3) / 4 * 4;
+  L.os = (n_off + 3) / 4 * 4;
+  L.bytes = (size_t)L.rows * (L.rs + L.os) * sizeof(float);
+  return L;
+}
+
+// items a thread, from the grid's size in waves of resident threads
+// (2048 an SM): one where a wave or less of short blocks fills the card,
+// more where each block's staging and barrier would be paid many times
+__host__ inline int smooth_items(int F, int W, int sms) {
+  const double waves = (double)F * ((W + SMOOTH_R - 1) / SMOOTH_R)
+                       / ((double)sms * 2048);
+  return waves >= 1.5 ? 4 : waves >= 0.75 ? 2 : 1;
+}
+
+// m of the 4 offsets j0 .. j0+3 (weights w) on the window x = the extended
+// row from the group's first bin + j0, in order: acc[r] += w[jj] * x[jj+r]
+__device__ __forceinline__ void smooth_step(float (&acc)[SMOOTH_R],
+                                            const float4 w, const float4 a,
+                                            const float4 b, int m) {
+  const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const float wj[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    if (jj < m) {
+#pragma unroll
+      for (int r = 0; r < SMOOTH_R; ++r)
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(wj[jj], x[jj + r]));
+    }
+  }
+}
 
 __global__ void __launch_bounds__(SMOOTH_THREADS)
 smooth_kernel(const float* __restrict__ ext, const float* __restrict__ ov,
-              int W, int n_off, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  float* s_ov = sm;                     // n_off weights of this frame
-  float* s_ext = sm + n_off;            // SMOOTH_THREADS + n_off values
-  const size_t f = blockIdx.x;
-  const int i0 = blockIdx.y * SMOOTH_THREADS;
-  const int EW = W + n_off;
-  for (int j = threadIdx.x; j < n_off; j += SMOOTH_THREADS)
-    s_ov[j] = ov[f * n_off + j];
-  for (int j = threadIdx.x; j < SMOOTH_THREADS + n_off; j += SMOOTH_THREADS)
-    s_ext[j] = i0 + j < EW ? ext[f * EW + i0 + j] : 0.0f;
+              int F, int W, int n_off, int items, float* __restrict__ out) {
+  const SmoothLayout L = smooth_layout(F, W, n_off, items);
+  extern __shared__ __align__(16) float sm[];
+  float* s_ov = sm;                           // [row][os]
+  float* s_ext = sm + L.rows * L.os;          // [row][rs]
+  const int EW = W + n_off, block = SMOOTH_THREADS * items;
+  const int total = F * L.ng;                 // < 2^31 (the host checks)
+  const int g0 = blockIdx.x * block;
+  const int g_last = min(g0 + block, total) - 1;
+  const int f_first = g0 / L.ng, f_last = g_last / L.ng;
+  // stage only the columns the items read: the first row from its first
+  // group's bin (a multiple of 4, so rows stay 16-byte aligned), the last
+  // up to its last group's window
+  const int c_first = SMOOTH_R * (g0 - f_first * L.ng);
+  const int c_last = min(EW, SMOOTH_R * (g_last - f_last * L.ng) + n_off + 3);
+  for (int r = 0; r <= f_last - f_first; ++r) {
+    const int c0 = r == 0 ? c_first : 0;
+    const int c1 = r == f_last - f_first ? c_last : EW;
+    const float* row = ext + (size_t)(f_first + r) * EW;
+    for (int c = c0 + threadIdx.x; c < c1; c += SMOOTH_THREADS)
+      cp_async4(s_ext + r * L.rs + (c - c0), row + c);
+    const float* wrow = ov + (size_t)(f_first + r) * n_off;
+    for (int c = threadIdx.x; c < n_off; c += SMOOTH_THREADS)
+      cp_async4(s_ov + r * L.os + c, wrow + c);
+  }
+  cp_async_wait_all();
   __syncthreads();
-  const int i = i0 + threadIdx.x;
-  if (i >= W) return;
-  float acc = 0.0f;
-  for (int j = 0; j < n_off; ++j)
-    acc = __fadd_rn(acc, __fmul_rn(s_ov[j], s_ext[threadIdx.x + j]));
-  out[f * W + i] = acc;
+
+  for (int g = g0 + threadIdx.x; g <= g_last; g += SMOOTH_THREADS) {
+    const int f = g / L.ng, gi = g - f * L.ng;
+    const float* x = s_ext + (f - f_first) * L.rs + SMOOTH_R * gi
+                     - (f == f_first ? c_first : 0);
+    const float* w = s_ov + (f - f_first) * L.os;
+    float acc[SMOOTH_R] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float4 a = *reinterpret_cast<const float4*>(x);
+    int j0 = 0;
+    for (; j0 + 4 <= n_off; j0 += 4) {
+      const float4 b = *reinterpret_cast<const float4*>(x + j0 + 4);
+      smooth_step(acc, *reinterpret_cast<const float4*>(w + j0), a, b, 4);
+      a = b;
+    }
+    if (j0 < n_off) {
+      const float4 b = *reinterpret_cast<const float4*>(x + j0 + 4);
+      smooth_step(acc, *reinterpret_cast<const float4*>(w + j0), a, b,
+                  n_off - j0);
+    }
+    const int i0 = SMOOTH_R * gi;
+    float* o = out + (size_t)f * W + i0;
+    if (i0 + SMOOTH_R <= W && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+      *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2],
+                                                  acc[3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < SMOOTH_R; ++r)
+        if (i0 + r < W) o[r] = acc[r];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// chain probes: W2's and W3's frame-to-frame dependency with a minimal
+// step, timed by chip_smoke.py as the floor of those chains (one warp)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+chain_probe_kernel(const float* __restrict__ in, int which, int steps,
+                   float* __restrict__ out) {
+  const int lane = threadIdx.x;
+  float c = in[lane];
+  const float a = in[32 + lane], b = in[64 + lane];
+  if (which == 0) {
+    // W2: one shuffle-min and one add a frame
+    for (int t = 0; t < steps; ++t)
+      c = __fadd_rn(fminf(c, __shfl_xor_sync(FULL, c, 1)), a);
+  } else {
+    // W3: the carried compare and select a frame
+    for (int t = 0; t < steps; ++t)
+      c = c > 0.0f ? __fsub_rn(c, a) : __fadd_rn(c, b);
+  }
+  out[lane] = c;
 }
 
 }  // namespace
@@ -375,14 +760,30 @@ extern "C" int qp_world_pool(const float* f_sorted, const float* sp_sorted,
   return (int)cudaGetLastError();
 }
 
+// W2's back-pointer capacity in shared memory, bytes ((F - 1) * S beyond
+// it spill to `back`, which must then hold them)
+extern "C" int qp_world_viterbi_back_smem() { return VIT_BACK_SMEM; }
+
 extern "C" int qp_world_viterbi(const float* emits, const float* logf,
                                 const float* refined, int F, int K,
                                 float tc, float uc, uint8_t* back,
                                 float* f0, void* stream) {
   if (F < 1 || K < 0 || K + 1 > MAX_STATES) return (int)cudaErrorInvalidValue;
-  viterbi_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(emits, logf, refined,
-                                                     F, K, tc, uc, back, f0);
-  return (int)cudaGetLastError();
+  const bool spill = (size_t)(F - 1) * (K + 1) > (size_t)VIT_BACK_SMEM;
+  if (spill && back == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (vit_lanes(K + 1)) {
+    case 32: return launch_viterbi<32>(emits, logf, refined, F, K, tc, uc,
+                                       back, f0, spill, s);
+    case 16: return launch_viterbi<16>(emits, logf, refined, F, K, tc, uc,
+                                       back, f0, spill, s);
+    case 8: return launch_viterbi<8>(emits, logf, refined, F, K, tc, uc,
+                                     back, f0, spill, s);
+    case 4: return launch_viterbi<4>(emits, logf, refined, F, K, tc, uc,
+                                     back, f0, spill, s);
+    default: return launch_viterbi<2>(emits, logf, refined, F, K, tc, uc,
+                                      back, f0, spill, s);
+  }
 }
 
 extern "C" int qp_world_fix_contour(const float* step2, const float* cands,
@@ -396,11 +797,30 @@ extern "C" int qp_world_fix_contour(const float* step2, const float* cands,
 
 extern "C" int qp_world_smooth(const float* ext, const float* ov, int F,
                                int W, int n_off, float* out, void* stream) {
-  const size_t smem = (size_t)(SMOOTH_THREADS + 2 * n_off) * sizeof(float);
-  if (F < 1 || W < 1 || n_off < 1 || smem > 48 * 1024)
+  if (F < 1 || W < 1 || n_off < 1
+      || (long long)F * ((W + SMOOTH_R - 1) / SMOOTH_R) >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(F, (W + SMOOTH_THREADS - 1) / SMOOTH_THREADS);
-  smooth_kernel<<<grid, SMOOTH_THREADS, smem, (cudaStream_t)stream>>>(
-      ext, ov, W, n_off, out);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int items = smooth_items(F, W, sms);
+  const SmoothLayout L = smooth_layout(F, W, n_off, items);
+  if (L.bytes > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (L.bytes > 48 * 1024) {
+    err = raise_smem_once((const void*)smooth_kernel, 0, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int block = SMOOTH_THREADS * items;
+  const int blocks = (F * L.ng + block - 1) / block;
+  smooth_kernel<<<blocks, SMOOTH_THREADS, L.bytes, (cudaStream_t)stream>>>(
+      ext, ov, F, W, n_off, items, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qp_world_chain_probe(const float* in, int which, int steps,
+                                    float* out, void* stream) {
+  if (which < 0 || which > 1 || steps < 0) return (int)cudaErrorInvalidValue;
+  chain_probe_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(in, which, steps,
+                                                         out);
   return (int)cudaGetLastError();
 }

@@ -10,11 +10,13 @@ for each kernel's design and bound):
   W1 `pool`: harvest's candidate pooling over channel ranks
      (qpnet_tpu/dsp/world/jax_f0.py::_pool_candidates, its fori_loop);
   W2 `viterbi`: harvest's contour Viterbi, forward and back-track
-     (jax_f0.py::_viterbi, its two scans);
+     (jax_f0.py::_viterbi, its two scans): three warps stage the
+     transitions, one runs the chain with shuffles;
   W3 `fix_contour`: DIO's FixF0Contour steps 3-4, the forward and the
      backward extension loops (jax_f0.py::_fix_contour_scan, its scans);
   W4 `smooth`: the fractional-box spectral smoothing over 2*kmax offsets
-     (qpnet_tpu/dsp/world/jax_analysis.py::_jax_linear_smoothing).
+     (qpnet_tpu/dsp/world/jax_analysis.py::_jax_linear_smoothing),
+     SMOOTH_R bins a thread over a window held in registers.
 
 Each wrapper runs its plain version (`*_reference`) on CPU tensors and
 launches its kernel on CUDA tensors; any other device raises ValueError.
@@ -32,8 +34,13 @@ import torch
 
 KERNELS = ("pool", "viterbi", "fix_contour", "smooth")
 MAX_POOL = 16      # W1: the most candidates a frame keeps (registers)
-MAX_STATES = 16    # W2: the most states (lanes of the warp)
+MAX_STATES = 16    # W2: the most states (P lanes each of one warp)
 MAX_CANDS = 32     # W3: the most band candidates (lanes of the warp)
+# W2 keeps its (F - 1, S) uint8 back-pointers in shared memory up to this
+# many bytes; past it they go to device memory (csrc VIT_BACK_SMEM)
+VITERBI_BACK_SMEM = 81920
+SMOOTH_THREADS = 256   # W4: threads a block
+SMOOTH_R = 4           # W4: consecutive bins an item (a thread's group)
 
 # kernel launches made through the wrappers, one per call on CUDA tensors;
 # the analysis may run in a thread per device
@@ -54,6 +61,37 @@ def reset_launch_count() -> None:
 def _counted(name: str) -> None:
     with _count_lock:
         launch_counts[name] += 1
+
+
+def viterbi_lanes(S: int) -> int:
+    """W2's lanes a state: the largest power of two P with S * P <= 32
+    (csrc vit_lanes); lane q of a state holds the predecessors q * NPOS ..
+    q * NPOS + NPOS - 1, NPOS = ceil(min(16, 32 / P) / P)."""
+    P = 32
+    while P > 1 and S * P > 32:
+        P //= 2
+    return P
+
+
+def viterbi_spills(F: int, K: int) -> bool:
+    """True when W2's back-pointers, (F - 1) * (K + 1) bytes, do not fit in
+    its shared memory and go to device memory instead."""
+    return (F - 1) * (K + 1) > VITERBI_BACK_SMEM
+
+
+def smooth_layout(F: int, W: int, n_off: int, items: int = 1) -> dict:
+    """W4's launch shape (csrc smooth_layout; the kernel takes 1, 2 or 4
+    items a thread as the grid grows): ng bin groups of SMOOTH_R a frame;
+    a block's SMOOTH_THREADS * items consecutive (frame, group) items span
+    at most `rows` frames, each staged as rs floats (16-byte aligned, room
+    for the last group's window) beside os weights; `bytes` of shared
+    memory."""
+    ng = -(-W // SMOOTH_R)
+    rows = min(F, -(-SMOOTH_THREADS * items // ng) + 1)
+    rs = (SMOOTH_R * ng + n_off + 3 + 3) // 4 * 4
+    os_ = (n_off + 3) // 4 * 4
+    return {"ng": ng, "rows": rows, "rs": rs, "os": os_,
+            "bytes": rows * (rs + os_) * 4}
 
 
 # ---------------------------------------------------------------------------
@@ -207,8 +245,11 @@ def _lib():
                                          _P]
         lib.qp_world_fix_contour.argtypes = [_P, _P, _I, _I, _F, _P, _P]
         lib.qp_world_smooth.argtypes = [_P, _P, _I, _I, _I, _P, _P]
+        lib.qp_world_chain_probe.argtypes = [_P, _I, _I, _P, _P]
+        lib.qp_world_viterbi_back_smem.argtypes = []
         for fn in (lib.qp_world_pool, lib.qp_world_viterbi,
-                   lib.qp_world_fix_contour, lib.qp_world_smooth):
+                   lib.qp_world_fix_contour, lib.qp_world_smooth,
+                   lib.qp_world_chain_probe, lib.qp_world_viterbi_back_smem):
             fn.restype = ctypes.c_int
         _loaded.append(lib)
     return _loaded[0]
@@ -281,13 +322,15 @@ def viterbi(emits, logf, refined, transition_cost: float,
                          f"{tuple(logf.shape)}, refined {tuple(refined.shape)}"
                          f" (at most {MAX_STATES} states)")
     dev = emits.device
-    # back-pointers: (F-1, S) uint8, written forward, read back
-    back = torch.empty((max(F - 1, 1), K + 1), dtype=torch.uint8, device=dev)
+    # back-pointers (F-1, S) uint8 live in the kernel's shared memory unless
+    # they spill; then they go here, written forward and read back
+    back = (torch.empty((F - 1, K + 1), dtype=torch.uint8, device=dev)
+            if viterbi_spills(F, K) else None)
     f0 = torch.empty((F,), dtype=torch.float32, device=dev)
     _launch("viterbi", _lib().qp_world_viterbi, dev, emits.data_ptr(),
             logf.data_ptr(), refined.data_ptr(), F, K,
-            float(transition_cost), float(unvoiced_cost), back.data_ptr(),
-            f0.data_ptr())
+            float(transition_cost), float(unvoiced_cost),
+            None if back is None else back.data_ptr(), f0.data_ptr())
     return f0
 
 
@@ -316,10 +359,40 @@ def smooth(ext, ov):
     ext, ov = _f32(ext), _f32(ov)
     F, n_off = ov.shape
     W = ext.shape[1] - n_off
-    if ext.shape[0] != F or W < 1:
+    if ext.shape[0] != F or W < 1 or n_off < 1:
         raise ValueError(f"smooth: ext {tuple(ext.shape)}, ov "
                          f"{tuple(ov.shape)}")
     out = torch.empty((F, W), dtype=torch.float32, device=ext.device)
     _launch("smooth", _lib().qp_world_smooth, ext.device, ext.data_ptr(),
             ov.data_ptr(), F, W, n_off, out.data_ptr())
     return out
+
+
+CHAIN_PROBES = ("viterbi", "fix_contour")
+
+
+def chain_probe(name: str, steps: int, inp: torch.Tensor) -> torch.Tensor:
+    """Launch the chain probe of W2 ("viterbi": one shuffle-min and one add
+    a step) or W3 ("fix_contour": one carried compare and select a step)
+    over `steps` dependent steps on one warp of the card, starting from
+    inp (96,) float32 on the card: the floor of that kernel's frame chain,
+    for timing.  Not a path kernel, so not counted.  Returns (32,)."""
+    if inp.device.type != "cuda" or inp.shape != (96,):
+        raise ValueError(f"chain_probe takes (96,) on the card, got "
+                         f"{tuple(inp.shape)} on {inp.device}")
+    out = torch.empty(32, dtype=torch.float32, device=inp.device)
+    with torch.cuda.device(inp.device):
+        err = _lib().qp_world_chain_probe(
+            _f32(inp).data_ptr(), CHAIN_PROBES.index(name), int(steps),
+            out.data_ptr(),
+            torch.cuda.current_stream(inp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"world_kernel chain probe {name} failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+def viterbi_back_smem() -> int:
+    """The built kernel's back-pointer capacity in bytes (VIT_BACK_SMEM),
+    which must equal VITERBI_BACK_SMEM."""
+    return _lib().qp_world_viterbi_back_smem()
