@@ -86,15 +86,22 @@ Phases, each reported on its own line; any failure exits non-zero:
      through the kernels W1-W4 (`ops/world_kernel.py`: pooling, Viterbi,
      DIO's contour walks, smoothing): each kernel against its plain
      version bit for bit on the inputs the passes gave it (recorded at the
-     wrappers), timed beside it, the earlier design's time (one warp a
-     Viterbi, one bin a thread), its bound (bytes, or
-     operations at half the fused float32 rate: the file is built
-     -fmad=false), W2's and W3's chain probe (a minimal step a frame over
-     the same chain) and (W4) a grouped conv1d; W2 and W4 also bit for bit
-     on the CPU tests' edge inputs (`ops/world_kernel_cases.py`: ties, NaN,
-     +-inf, 1e30, the tile remainders), W2 at its shared-memory capacity
-     and past it (the spill branch, kernel only: S = 16 at 15,001 and
-     6,001 frames, S = 7 at 12,001 and 11,800, four calls each);
+     wrappers), timed beside it, the first design's recorded time (a thread
+     a frame, one warp a Viterbi or a DIO walk, one bin a thread), its
+     bound (bytes, or operations at half the fused float32 rate: the file
+     is built -fmad=false), W2's and W3's chain probe (a minimal step at
+     every frame of the same chain), W1's and W3's empty launch with their
+     grid and (W4) a grouped conv1d; every kernel also bit for bit on the
+     CPU tests' edge inputs (`ops/world_kernel_cases.py`: ties, NaN,
+     +-inf, 1e30, the tile remainders; W1's 5% edge, tiny and agreeing
+     +inf candidates at 1-97 ranks and K 1-16; W3's 10% edge at C = 1-32,
+     F = 1 and 2, all-voiced and all-unvoiced; W1 and W3 four calls each),
+     W2 at its shared-memory capacity and past it (the spill branch,
+     kernel only: S = 16 at 15,001 and 6,001 frames, S = 7 at 12,001 and
+     11,800, four calls each), W3 four times on the input of a DIO F0 pass
+     over the 10 s utterance (device_dio alone), timed, and past its
+     shared memory (6,500 frames at C = 7, 2,001 at C = 32, walked on
+     device memory), timed;
      `WorldAnalyzer.extract_all` queued without a sync
      (`torch.cuda.set_sync_debug_mode("error")`), the kernels' launches
      counted over that pass, its F0 held to the host
@@ -1659,7 +1666,6 @@ F0_BOTH_MIN = 0.4            # share of frames voiced in both
 F0_MEDIAN_MAX = 1.0          # Hz, median |dF0| where both are voiced
 F0_NEAR_MIN = 0.9            # share of those within 10 Hz
 VOCODE_FRAMES = 4            # frames of the forced K1 check at vocode's shape
-AN_SECONDS = (3.0, 10.0)     # VCC2018 utterance lengths
 
 
 def f0_gates(f0_dev, f0_host, tag):
@@ -1715,46 +1721,21 @@ WK_ROWS = {
 # the calls of each kernel in one fused pass, harvest and dio
 WK_HARVEST = {"pool": 1, "viterbi": 1, "fix_contour": 0, "smooth": 4}
 WK_DIO = {"pool": 0, "viterbi": 0, "fix_contour": 1, "smooth": 4}
-WK_SPIN_CYCLES = 20_000_000  # about 10 ms of the device, longer than the
-                             # host takes to queue the timed calls
 HBM_BYTES_S = 3.35e12        # H100 SXM device memory
 F32_OPS_S = 67e12            # H100 SXM float32 outside the tensor cores,
                              # counting a fused multiply-add as two
 # world_kernel.cu is built -fmad=false: each multiply and add is its own
 # instruction, so its operations run at half the fused rate
 WK_OPS_S = F32_OPS_S / 2
-# the designs W2 and W4 replaced (one warp a Viterbi with a lane a state,
-# one bin a thread) and W1 and W3 as they were then: device ms per pass by
-# pass length, recorded by this phase on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md section 6); printed beside this run's times as a record only, never
-# put in the kernels line, which carries this run's measurements
+# the first designs of W1-W4 (a thread a frame, one warp a Viterbi with a
+# lane a state, one warp's shuffles a DIO frame, one bin a thread): device
+# ms per pass by pass length, recorded by this phase on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md section 6); printed beside this run's times as a
+# record only, never put in the kernels line, which carries this run's
+# measurements
 WK_BEFORE_MS = {3: {"pool": 0.0435, "viterbi": 0.2736, "smooth": 0.0543,
                   "fix_contour": 0.1706},
               10: {"pool": 0.0434, "viterbi": 0.9046, "smooth": 0.1471}}
-
-
-class wk_recording:
-    """Records [(kernel, args)] of every W1-W4 wrapper call made inside the
-    block: the analysis calls the wrappers as `world_kernel.<name>`, so
-    they are replaced by recording ones for its duration."""
-
-    def __enter__(self):
-        from qpnet_tpu_torch.ops import world_kernel as WK
-        self.WK, self.calls = WK, []
-        self.saved = {n: getattr(WK, n) for n in WK.KERNELS}
-        for n, fn in self.saved.items():
-            setattr(WK, n, self._recorder(n, fn))
-        return self.calls
-
-    def _recorder(self, name, fn):
-        def call(*args):
-            self.calls.append((name, args))
-            return fn(*args)
-        return call
-
-    def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(self.WK, n, fn)
 
 
 def wk_counts():
@@ -1797,7 +1778,8 @@ def wk_pass(dv, x, dim, alpha, tag, want, errs):
     `want`).  Returns (the fetched features, the launches, the calls)."""
     import torch
     from qpnet_tpu_torch.ops import world_kernel as WK
-    with wk_recording() as calls:
+    from qpnet_tpu_torch.ops import world_kernel_cases as CASES
+    with CASES.recording() as calls:
         dv.extract_all(x, dim, alpha)
     wk_hold(calls, tag, errs)
     WK.reset_launch_count()
@@ -1832,47 +1814,42 @@ def wk_work(name, args):
     return 4 * (ext.numel() + ov.numel() + F * W), 2 * F * W * n_off
 
 
-def wk_device_ms(fn, calls=10):
-    """Device ms of one call of fn: the mean over `calls` calls queued
-    back to back behind a spin of the device, so that the CUDA events
-    around them time the device and not the host's queueing.  (In a whole
-    run of this script torch.profiler's trace lacks some kernels, so it
-    does not time these.)"""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(WK_SPIN_CYCLES)
-    start.record()
-    for _ in range(calls):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / calls
-
-
 def wk_chain_ms(name, steps):
     """Device ms of the chain probe of W2 or W3 over `steps` dependent
     steps (world_kernel.chain_probe): the floor of that kernel's frame
     chain on this card."""
     import torch
     from qpnet_tpu_torch.ops import world_kernel as WK
+    from qpnet_tpu_torch.ops import world_kernel_cases as CASES
     inp = torch.rand(96, generator=torch.Generator().manual_seed(steps)).cuda()
-    return wk_device_ms(lambda: WK.chain_probe(name, steps, inp))
+    return CASES.device_ms(lambda: WK.chain_probe(name, steps, inp))
 
 
-def wk_times(calls, names):
-    """Per kernel of `names`, summed over its recorded calls of one pass:
-    the kernel's device ms (wk_device_ms, on contiguous copies of the
-    inputs), the wrapper call's ms between CUDA events (the host's work
-    included; the median of 10), the plain version's ms likewise (median
-    of 3), the bound, for W2 and W3 their chain probe's device ms (the
-    forward's F - 1 steps; W3's two walks, 2 F - 1), and for W4 the device
-    ms of one grouped conv1d computing the same sums (float32, no TF32)
-    with its largest relative distance."""
+def wk_floor_ms(name, dims):
+    """Device ms of an empty launch with W1's or W3's grid, block and shared
+    memory for dims (world_kernel.launch_floor): the floor of that
+    kernel's launch on this card."""
     import torch
     from qpnet_tpu_torch.ops import world_kernel as WK
+    from qpnet_tpu_torch.ops import world_kernel_cases as CASES
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return CASES.device_ms(lambda: WK.launch_floor(name, dims, dev))
+
+
+def wk_times(calls, names, plain=True):
+    """Per kernel of `names`, summed over its recorded calls of one pass:
+    the kernel's device ms (CASES.device_ms, on contiguous copies of the
+    inputs), the wrapper call's ms between CUDA events (the host's work
+    included; the median of 10), the plain version's ms likewise (median
+    of 3; not with plain=False), the bound, for W1 and W3 an empty launch
+    with their grid, block and shared memory, for W2 and W3 their chain
+    probe's device ms (the forward's F - 1 steps; W3's two walks, 2 F - 1:
+    the floor of a walk over every frame), and for W4 the device ms of one
+    grouped conv1d computing the same sums (float32, no TF32) with its
+    largest relative distance."""
+    import torch
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    from qpnet_tpu_torch.ops import world_kernel_cases as CASES
     out = {}
     for name, args in calls:
         if name not in names:
@@ -1883,13 +1860,17 @@ def wk_times(calls, names):
         kernel = getattr(WK, name)
         dense = [a.contiguous() if torch.is_tensor(a) else a for a in args]
         r["calls"] += 1
-        r["ms"] += wk_device_ms(lambda: kernel(*dense))
+        r["ms"] += CASES.device_ms(lambda: kernel(*dense))
         r["call_ms"] += median_ms(lambda: kernel(*args), calls=10)[0]
-        r["plain_ms"] += median_ms(
-            lambda: getattr(WK, name + "_reference")(*args), calls=3)[0]
+        if plain:
+            r["plain_ms"] += median_ms(
+                lambda: getattr(WK, name + "_reference")(*args), calls=3)[0]
         b, o = wk_work(name, args)
         r["bytes"] += b
         r["ops"] += o
+        if name in ("pool", "fix_contour"):
+            r["floor_ms"] = r.get("floor_ms", 0.0) + wk_floor_ms(
+                name, args[0].shape if name == "pool" else args[1].shape)
         if name in ("viterbi", "fix_contour"):
             F = args[0].shape[0]
             r["chain_ms"] = r.get("chain_ms", 0.0) + wk_chain_ms(
@@ -1902,7 +1883,7 @@ def wk_times(calls, names):
                     ext[None], ov[:, None, :], groups=ov.shape[0])[
                         0, :, :ext.shape[1] - ov.shape[1]]
             with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                r["library_ms"] = (r["library_ms"] or 0.0) + wk_device_ms(
+                r["library_ms"] = (r["library_ms"] or 0.0) + CASES.device_ms(
                     conv)
                 ref = WK.smooth_reference(*args)
                 rel = float(((conv() - ref).abs()
@@ -1916,21 +1897,28 @@ def wk_times(calls, names):
 
 
 def wk_time_line(tag, secs, times, card):
-    """The kernels' device ms per pass beside the earlier design's recorded
+    """The kernels' device ms per pass beside the first design's recorded
     time (WK_BEFORE_MS, not measured in this run), the bound (and W2's and
-    W3's chain probe) with the share of it the kernel reaches."""
+    W3's chain probe, W1's and W3's empty launch) with the share of the
+    largest of them the kernel reaches."""
     def one(n, r):
-        floor = max(r["bound_ms"], r.get("chain_ms", 0.0))
-        of = "chain" if floor > r["bound_ms"] else "bound"
-        before = WK_BEFORE_MS.get(round(secs), {}).get(n, float("nan"))
+        # W3 walks only the frames its carry decides, so its chain probe
+        # (a step at every frame) is no floor of it
+        floors = {"bound": r["bound_ms"], "empty launch": r.get("floor_ms", 0),
+                  "chain probe": r.get("chain_ms", 0) if n == "viterbi" else 0}
+        of = max(floors, key=floors.get)
+        floor = floors[of]
+        before = WK_BEFORE_MS.get(round(secs), {}).get(n)
         return (f"{WK_ROWS[n][0]} x{r['calls']} device {r['ms']:.4f} (the "
-                f"earlier design's recorded time, not measured here, "
-                f"{before:.4f}"
-                f"; the wrapper call {r['call_ms']:.4f}; plain "
-                f"{r['plain_ms']:.3f}; bound {r['bound_ms']:.5f} by "
-                f"{r['bound_by']}"
+                f"first design's recorded time, not measured here, "
+                + (f"{before:.4f}" if before else "none at this length")
+                + f"; the wrapper call {r['call_ms']:.4f}; plain "
+                + (f"{r['plain_ms']:.3f}" if r["plain_ms"] else "not timed")
+                + f"; bound {r['bound_ms']:.5f} by {r['bound_by']}"
                 + (f", chain probe {r['chain_ms']:.4f}" if "chain_ms" in r
                    else "")
+                + (f", empty launch with its grid {r['floor_ms']:.4f}"
+                   if "floor_ms" in r else "")
                 + f"; share of the {of} {floor / r['ms']:.3f}"
                 + (f"; grouped conv1d device {r['library_ms']:.4f}, max rel "
                    f"|d| {r['library_rel']:.1e}"
@@ -2006,11 +1994,123 @@ def wk_edges(errs, card):
                       f"plain version")
     spill = spilled[0][1]
     F, S = spill[0].shape
-    ms = wk_device_ms(lambda: WK.viterbi(*spill), calls=3)
+    ms = CASES.device_ms(lambda: WK.viterbi(*spill), calls=3)
     phase("time", f"W2's spill branch (S = {S}, {F} frames, back-pointers "
                   f"{(F - 1) * S} bytes in device memory): device "
                   f"{ms:.4f} ms = {ms / F * 1e6:.1f} ns a frame | {card}")
     return ms
+
+
+# W1's and W3's edge inputs (ops/world_kernel_cases.py), held on the card:
+# (seed, n_ch, F, K, agreeing +inf) for W1 (1-97 ranks around the warp's 32
+# lanes, K 1-16, harvest's 81 x 6; F = 1 and tiles left ragged; K = 2 for
+# the ranks after an agreeing +inf), (seed, F, C, kind) for W3 (C = 1, 7
+# and 32; F = 1 and 2; all-unvoiced and all-voiced); W3's inputs past its
+# shared memory are world_kernel_cases.FIX_CONTOUR_LONG
+WK_POOL_EDGES = [(0, 81, 37, 6, False), (1, 1, 9, 1, False),
+                 (2, 31, 17, 6, False), (3, 33, 16, 15, False),
+                 (4, 97, 23, 16, False), (5, 81, 8, 16, True),
+                 (6, 40, 1, 6, False), (7, 64, 12, 1, True),
+                 (8, 81, 2001, 6, True), (9, 33, 9, 2, True)]
+WK_FIX_EDGES = [(0, 200, 7, "mixed"), (1, 200, 7, "mixed"), (2, 1, 7, "mixed"),
+                (3, 2, 1, "mixed"), (4, 150, 32, "mixed"),
+                (5, 60, 7, "unvoiced"), (6, 60, 32, "voiced"),
+                (7, 601, 7, "mixed"), (8, 90, 1, "mixed"),
+                (9, 120, 16, "mixed")]
+WK_EDGE_REPEATS = 4   # kernel calls an edge input, each held to the plain
+
+
+def wk_hold_repeats(name, args, what):
+    """WK_EDGE_REPEATS calls of kernel `name` on args, each bit-equal to
+    one call of its plain version; returns max |d| (0)."""
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    want = getattr(WK, name + "_reference")(*args)
+    for i in range(WK_EDGE_REPEATS):
+        same, d = wk_bits(getattr(WK, name)(*args), want)
+        check(same, f"{WK_ROWS[name][0]} on {what}, call {i + 1}, differs "
+                    f"from its plain version, max |d| {d}")
+    return 0.0
+
+
+def wk_pool_contour_edges(dev, card, x_long, errs):
+    """W1 and W3 bit for bit against their plain versions, each input
+    WK_EDGE_REPEATS times: on the CPU tests' edge inputs moved to the card
+    (W1: NaN, the 5% edge, tiny candidates, an agreeing +inf, 1-97 ranks,
+    K 1-16; W3: ties, NaN, the 10% edge, gaps at either end, C = 1-32), on
+    the W3 input of a DIO F0 pass over x_long (device_dio alone, 40-400 Hz
+    as the dio leg; no spectral stages), and on W3 inputs too long for its
+    shared memory (the walks on device memory), once the built kernel is
+    seen to stage where world_kernel.fix_contour_staged says.  Times W3 on the x_long
+    input beside its floors, and on the long inputs.  Returns (W3's times
+    on the x_long input, the long inputs' device ms by (F, C))."""
+    import torch
+    from qpnet_tpu_torch.dsp.world import device_f0 as DF
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    from qpnet_tpu_torch.ops import world_kernel_cases as CASES
+    t0 = time.perf_counter()
+    for seed, n_ch, F, K, inf in WK_POOL_EDGES:
+        f, sp = (torch.from_numpy(a).to(dev) for a in CASES.pool_edge_inputs(
+            seed, n_ch, F, agreeing_inf=inf))
+        errs["pool"] = max(errs.get("pool", 0.0), wk_hold_repeats(
+            "pool", (f, sp, CASES.AGREEMENT_THRESHOLD, K),
+            f"edge input {(seed, n_ch, F, K)}"))
+    for seed, F, C, kind in WK_FIX_EDGES:
+        s2, c = (torch.from_numpy(a).to(dev) for a in
+                 CASES.fix_contour_edge_inputs(seed, F, C, kind))
+        errs["fix_contour"] = max(errs.get("fix_contour", 0.0),
+                                  wk_hold_repeats(
+            "fix_contour", (s2, c, CASES.ALLOWED_RANGE),
+            f"edge input {(seed, F, C, kind)}"))
+    phase("analysis", f"W1 on {len(WK_POOL_EDGES)} and W3 on "
+                      f"{len(WK_FIX_EDGES)} edge inputs (NaN, ties, the 5% "
+                      f"and 10% edges, tiny and +inf candidates, 1-97 "
+                      f"ranks, K 1-16, C 1-32, F 1-2001), "
+                      f"{WK_EDGE_REPEATS} calls each: bit-equal to their "
+                      f"plain versions")
+    # W3 on a DIO pass's own input at x_long's length
+    secs = len(x_long) / FS
+    with CASES.recording() as calls:
+        DF.device_dio(x_long, FS, n_valid=len(x_long), f0_floor=40.0,
+                      f0_ceil=400.0, frame_period=5.0, device=dev)
+    calls = [c for c in calls if c[0] == "fix_contour"]
+    check(len(calls) == 1, f"device_dio made {len(calls)} W3 calls")
+    args = calls[0][1]
+    errs["fix_contour"] = max(errs["fix_contour"], wk_hold_repeats(
+        "fix_contour", args, f"the {secs:g} s DIO input"))
+    times = wk_times(calls, ("fix_contour",), plain=False)
+    wk_time_line(f"W3 on the {secs:g} s DIO input {tuple(args[1].shape)}",
+                 secs, times, card)
+    # the built W3 stages where its Python copy says: on this input, the
+    # long ones and either side of the shared-memory edge (SMEM_MAX)
+    dims = [tuple(args[1].shape)] + [(F, C) for _, F, C in
+                                     CASES.FIX_CONTOUR_LONG]
+    for C in (1, 7, 32):
+        most = WK.SMEM_MAX // (4 * (C + 2))
+        dims += [(most, C), (most + 1, C)]
+    staged = [(WK.fix_contour_staged(*d), WK.fix_staged_built(*d))
+              for d in dims]
+    check(all(a == b for a, b in staged), f"W3 staged (Python, built) at "
+                                          f"{dims}: {staged}")
+    long_ms = {}
+    for seed, F, C in CASES.FIX_CONTOUR_LONG:
+        s2, c = (torch.from_numpy(a).to(dev) for a in
+                 CASES.fix_contour_edge_inputs(seed, F, C))
+        check(not WK.fix_contour_staged(F, C)
+              and not WK.fix_staged_built(F, C),
+              f"W3 at {(F, C)} must walk device memory")
+        wk_hold_repeats("fix_contour", (s2, c, CASES.ALLOWED_RANGE),
+                        f"the long input {(F, C)}")
+        long_ms[(F, C)] = CASES.device_ms(
+            lambda: WK.fix_contour(s2, c, CASES.ALLOWED_RANGE), calls=3)
+    phase("time", f"W3 past its shared memory (walks on device memory), "
+                  f"{WK_EDGE_REPEATS} calls each bit-equal to the plain "
+                  f"version: device " + ", ".join(
+                      f"{ms:.4f} ms = {ms / F * 1e6:.1f} ns a frame at "
+                      f"{(F, C)}" for (F, C), ms in long_ms.items())
+                  + f" | {card}")
+    phase("analysis", f"W1's and W3's edge, {secs:g} s and long checks "
+                      f"took {time.perf_counter() - t0:.1f} s")
+    return times["fix_contour"], long_ms
 
 
 def analysis_smoke(dev, card):
@@ -2035,6 +2135,7 @@ def analysis_smoke(dev, card):
     from qpnet_tpu_torch.models.qpnet import init_params
     from qpnet_tpu_torch.ops import gen_kernel as K
     from qpnet_tpu_torch.ops import world_kernel as WK
+    from qpnet_tpu_torch.ops.world_kernel_cases import PASS_SECONDS
     t_phase = time.perf_counter()
     ac = AcousticConfig(fs=FS, minf0=40.0, maxf0=400.0)
     dim, alpha = ac.mcep_dim, ac.mcep_alpha
@@ -2042,7 +2143,7 @@ def analysis_smoke(dev, card):
               fftl=ac.fftl)
     rng = np.random.default_rng(15)
     utts, errs, paths, times = {}, {}, {}, {}
-    for secs in AN_SECONDS:
+    for secs in PASS_SECONDS:
         x = gates.voiced_utterance(rng, secs, FS)
         utts[secs] = x
         tag = f"analysis {secs:g} s"
@@ -2171,8 +2272,10 @@ def analysis_smoke(dev, card):
         torch.cuda.empty_cache()
 
     spill_ms = wk_edges(errs, card)
-    dio_path = f"analysis_dio_{AN_SECONDS[0]:g}s"
-    dio = dio_leg(dev, card, utts[AN_SECONDS[0]], kw, dim, alpha, errs)
+    w3_long, w3_longest = wk_pool_contour_edges(dev, card,
+                                                utts[PASS_SECONDS[-1]], errs)
+    dio_path = f"analysis_dio_{PASS_SECONDS[0]:g}s"
+    dio = dio_leg(dev, card, utts[PASS_SECONDS[0]], kw, dim, alpha, errs)
     paths[dio_path] = dio["counts"]
     gate_inputs(dev)
 
@@ -2182,7 +2285,7 @@ def analysis_smoke(dev, card):
     up = cfg.upsampling_factor
     voc = Vocoder(init_params(0, cfg, device=dev), cfg, None, fs=FS,
                   device=dev)
-    pcm = np.clip(utts[AN_SECONDS[0]], -32768, 32767).astype(np.int16)
+    pcm = np.clip(utts[PASS_SECONDS[0]], -32768, 32767).astype(np.int16)
     feats = voc.analyze(pcm)
     check(feats.shape[1] == cfg.n_aux and np.isfinite(feats).all(),
           f"vocode features {feats.shape}")
@@ -2215,7 +2318,7 @@ def analysis_smoke(dev, card):
           f"{np.abs(wav).max()}, std {wav.std()}")
     check(launches > 0, "vocode must launch K1")
     phase("vocode", f"Vocoder(device=cuda).vocode of the "
-                    f"{AN_SECONDS[0]:g} s utterance (int16 PCM, default "
+                    f"{PASS_SECONDS[0]:g} s utterance (int16 PCM, default "
                     f"net, random weights, sampling): "
                     f"{wav.shape[0]} samples = F*up - 1 ({F} frames), "
                     f"finite, max |x| {float(np.abs(wav).max()):.4f}, std "
@@ -2231,9 +2334,9 @@ def analysis_smoke(dev, card):
     rows = {}
     for name, (label, replaces) in WK_ROWS.items():
         main = (dio_path if name == "fix_contour"
-                else f"analysis_{AN_SECONDS[-1]:g}s")
+                else f"analysis_{PASS_SECONDS[-1]:g}s")
         r = (dio["times"] if name == "fix_contour"
-             else times[AN_SECONDS[-1]])[name]
+             else times[PASS_SECONDS[-1]])[name]
         rows[name] = {
             "name": label, "route": "cuda",
             "source": "qpnet_tpu_torch/csrc/world_kernel.cu",
@@ -2244,9 +2347,13 @@ def analysis_smoke(dev, card):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "main_path": main, "calls_per_pass": r["calls"],
             "launches_by_path": {p: c[name] for p, c in paths.items()}}
-        if "chain_ms" in r:
-            rows[name]["chain_ms"] = r["chain_ms"]
+        for key in ("chain_ms", "floor_ms"):
+            if key in r:
+                rows[name][key] = r[key]
     rows["viterbi"]["spill_ms"] = spill_ms
+    rows["fix_contour"]["ms_by_input"] = {
+        f"dio_{PASS_SECONDS[-1]:g}s": w3_long["ms"],
+        **{f"{F}x{C}": ms for (F, C), ms in w3_longest.items()}}
     phase("analysis", f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return launches, rows
 

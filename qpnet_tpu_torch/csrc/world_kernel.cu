@@ -29,10 +29,21 @@
 // Bounds on the H100 (3.35 TB/s; float32 outside the tensor cores 67e12
 // operations/s counting a fused multiply-add as two, so 33.5e12 separate
 // multiplies or adds a second, which is what -fmad=false issues):
-//   W1: bytes (2 * n_ch * F + F * K floats, about 1.4 MB at 10 s).  A
-//     thread per frame, the K kept slots and the count in registers;
-//     neighbouring threads read neighbouring frames of one rank, so every
-//     load is coalesced.
+//   W1: bytes (2 * n_ch * F + F * K floats, about 1.4 MB at 10 s), far
+//     less than a launch costs; chip_smoke.py times an empty launch over
+//     W1's grid (launch_floor_kernel) as its measured floor.  A block takes
+//     POOL_TILE = 8 frames, a warp each: it stages the tile's n_ch x 8 f and
+//     sp values in shared memory (a rank's 8 frames are one 32-byte sector),
+//     then lane r of a warp holds ranks r, r + 32, r + 64, .., 32 at a time:
+//     its ok and its dup flag against every slot (the K slots, the same in
+//     every lane, empty ones 0 as in the plain version).  Selection goes in
+//     rounds: __ballot_sync of (ok and not dup) over lanes past the last
+//     kept, __ffs, and a shuffle of that rank's f give the next rank the
+//     serial walk keeps; the slots take pooled + one_hot * f as the plain
+//     version adds it (0 * f is NaN for f = +inf), and each lane tests the
+//     new slot only, since dup only grows as slots fill (but for +inf,
+//     after which every other slot is NaN).  At most K + ceil(n_ch / 32)
+//     rounds a frame, where the serial walk takes n_ch steps.
 //   W4: bytes and operations about even (F * (W + 4 kmax) + F * W floats,
 //     17-21 MB, and 2 * F * W * 2 kmax multiplies and adds a D4C call at
 //     10 s).  Register-blocked: a thread's item is SMOOTH_R = 4
@@ -52,11 +63,13 @@
 //     need every block they can get.  Each output's sum still runs over
 //     the offsets in order, one rounded product and one rounded add each;
 //     an item's 4 outputs are stored as one float4 where 16-byte aligned.
-//   W2, W3: the chain of F dependent steps (F = 601 at 3 s, 2001 at 10 s).
-//     Their bytes (a few floats a frame) and operations are a microsecond's
-//     work; each step waits for the one before.  chip_smoke.py times a
-//     probe kernel of each chain with a minimal step (chain_probe_kernel)
-//     as the measured floor.
+//   W2, W3: a chain of dependent steps over F frames (F = 601 at 3 s, 2001
+//     at 10 s; W3 twice).  Their bytes (a few floats a frame) and
+//     operations are a microsecond's work; each step waits for the one
+//     before.  chip_smoke.py times a probe kernel of each chain with a
+//     minimal step at every frame (chain_probe_kernel), the floor of a walk
+//     over every frame, and for W3, which walks only the frames whose value
+//     its carry decides, an empty launch with its block as well.
 //     W2 (viterbi_kernel), a block of 4 warps, min-plus over S = K + 1 <= 16
 //       states.  Warps 1-3 produce: for each chunk of VIT_CH frames they
 //       copy its emission rows and logf rows into a ring of VIT_STAGES
@@ -86,10 +99,29 @@
 //       thread 0 chains the G maps from the last frame's argmin, and
 //       thread g walks segment g once more from its known end state,
 //       writing f0: about 2 (F - 1) / G + G dependent loads instead of F.
-//     W3 (fix_contour_kernel), one warp: its lanes hold the C band
-//       candidates of a frame; the arg-min is a shuffle reduction, and the
-//       carried (prev2, prev1, alive, was_gap) is the same in every lane,
-//       so the warp never diverges.
+//     W3 (fix_contour_kernel), a block of 8 warps.  A frame's value
+//       depends on the carried (prev2, prev1, alive, was_gap) only where it
+//       selects: a gap frame while the extension chain is alive, and a
+//       section's first frame reached by a chain that survived its gap.
+//       Everywhere else it is a copy: step2 inside a section, 0 (forward)
+//       or step 3 (backward) in a gap whose chain is dead.  So all 256
+//       threads stage the candidates (F, C) and step2 in shared memory with
+//       cp.async and start step 3 as those copies (while F (C + 2) floats
+//       fit a block: 6,456 frames, 32 s, at C = 7; 1,709 at C = 32; longer
+//       passes run the same walks on device memory, step 3 in out).  Then
+//       warp 0 walks, every lane with the same carry: frame by frame where
+//       the carry decides, holding the frame's C candidates in CW = 8, 16
+//       or 32 register slots (read while the frame before selects) and
+//       taking the nearest to (3 prev1 - prev2) / 2 as a tree of selects in
+//       registers (no shuffle; the first index of a tie, NaN first, the
+//       candidate riding along; slots past C never win), then the plain
+//       version's IEEE division for the fail test.  A run of copied frames
+//       (a section up to its next gap, a dead gap up to its next section)
+//       is jumped 32 frames a __ballot_sync, and the carry is read back
+//       from step 3.  The forward walk writes its selects into step 3, the
+//       backward reads and overwrites it in place, and the block writes out
+//       once, coalesced, at the end.  At 3 s a pass selects at a few dozen
+//       of its 1,201 walk steps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,8 +134,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_POOL = 16;     // ops/world_kernel.py MAX_POOL
 constexpr int MAX_STATES = 16;   // MAX_STATES
 constexpr int MAX_CANDS = 32;    // MAX_CANDS
-constexpr int POOL_THREADS = 128;
-constexpr int POOL_GROUP = 8;    // W1: ranks loaded at a time
+constexpr int POOL_TILE = 8;     // W1: frames a block, a warp each
+constexpr int POOL_THREADS = 32 * POOL_TILE;
+constexpr int FIX_THREADS = 256;  // W3: all stage, warp 0 walks
 constexpr int VIT_THREADS = 128;               // W2: warp 0 the chain,
 constexpr int VIT_PRODUCERS = VIT_THREADS - 32;  // warps 1-3 the producers
 constexpr int VIT_CH = 32;       // W2: frames a ring stage holds
@@ -114,11 +147,12 @@ constexpr int SMOOTH_R = 4;           // SMOOTH_R: bins an item
 constexpr int SMEM_MAX = 232448;      // shared memory a block may use
 
 // Host state kept per device, so that a launch makes no driver query:
-// whether each kernel's shared-memory limit is raised (slot 0 W4, slots
-// 2 log2(P) + SPILL W2's instantiations) and the SM count (W4's items).
+// whether each kernel's shared-memory limit is raised (slot 0 W4, 1 W1,
+// 2 log2(P) + SPILL W2's instantiations, 12-14 W3's, 15 the empty launch)
+// and the SM count (W4's items).
 // Two threads may both set an entry; the calls are idempotent.
 constexpr int MAX_DEVICES = 64;
-constexpr int SMEM_SLOTS = 12;
+constexpr int SMEM_SLOTS = 16;
 std::atomic<bool> g_smem_raised[SMEM_SLOTS][MAX_DEVICES];
 std::atomic<int> g_sms[MAX_DEVICES];
 
@@ -165,13 +199,6 @@ __device__ __forceinline__ bool replaces(float v, float b) {
   return (isnan(v) & !isnan(b)) | (v < b);
 }
 
-// True when the pair (v, i) comes before (b, j) in LessOrNan's order: NaN
-// first, then by value, ties (and two NaNs) by index.
-__device__ __forceinline__ bool before(float v, int i, float b, int j) {
-  return isnan(v) ? (!isnan(b) || i < j)
-                  : (!isnan(b) && (v == b ? i < j : v < b));
-}
-
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
@@ -210,63 +237,90 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 }
 
 // ---------------------------------------------------------------------------
-// W1: candidate pooling, a thread per frame
+// W1: candidate pooling, a warp a frame (see the note at the top)
 // ---------------------------------------------------------------------------
+
+// pool_reference's duplicate test of f against one slot p: |f - p| <
+// 0.05 * clamp_min(p, 1e-9), each step rounded on its own
+__device__ __forceinline__ bool pool_dup(float f, float p) {
+  return fabsf(__fsub_rn(f, p)) < __fmul_rn(0.05f, clamp_min_nan(p, 1e-9f));
+}
+
+// the dynamic shared memory of W1's block: f and sp of n_ch ranks x
+// POOL_TILE frames, each rank's row POOL_TILE + 1 floats (no bank conflict
+// when lane r reads rank r0 + r)
+__host__ __device__ constexpr size_t pool_smem(int n_ch) {
+  return 2 * (size_t)n_ch * (POOL_TILE + 1) * sizeof(float);
+}
 
 __global__ void __launch_bounds__(POOL_THREADS)
 pool_kernel(const float* __restrict__ f_sorted,
             const float* __restrict__ sp_sorted, int n_ch, int F, int K,
             float thr, float* __restrict__ out) {
-  const int t = blockIdx.x * POOL_THREADS + threadIdx.x;
-  if (t >= F) return;
+  extern __shared__ float psm[];
+  float* s_f = psm;                                // [rank][POOL_TILE + 1]
+  float* s_sp = psm + (size_t)n_ch * (POOL_TILE + 1);
+  const int t0 = blockIdx.x * POOL_TILE;
+  const int nt = min(POOL_TILE, F - t0);
+  // the tile: POOL_TILE neighbouring frames of a rank are one 32-byte
+  // sector, so a warp's loads cover 4 ranks' sectors whole
+  for (int i = threadIdx.x; i < n_ch * POOL_TILE; i += POOL_THREADS) {
+    const int r = i / POOL_TILE, u = i % POOL_TILE;
+    if (u < nt) {
+      s_f[r * (POOL_TILE + 1) + u] = f_sorted[(size_t)r * F + t0 + u];
+      s_sp[r * (POOL_TILE + 1) + u] = sp_sorted[(size_t)r * F + t0 + u];
+    }
+  }
+  __syncthreads();
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (w >= nt) return;                 // warp-uniform: the tile's last frames
+  // the K slots, the same in every lane; empty ones hold 0, as the plain
+  // version's do
   float p[MAX_POOL];
 #pragma unroll
   for (int k = 0; k < MAX_POOL; ++k) p[k] = 0.0f;
   int n = 0;
-  // ranks in groups of POOL_GROUP, the next group's loads in flight while
-  // this one runs (a rank's work is far shorter than a load's latency)
-  float f_cur[POOL_GROUP], sp_cur[POOL_GROUP];
-  auto fetch = [&](int r0, float (&f)[POOL_GROUP], float (&sp)[POOL_GROUP]) {
+  for (int r0 = 0; r0 < n_ch && n < K; r0 += 32) {
+    // lane r holds rank r0 + r: its ok, and its dup flag against every
+    // slot, the empty ones included (|f - 0| < 0.05f * 1e-9f, rounded)
+    const int r = r0 + lane;
+    const float f = r < n_ch ? s_f[r * (POOL_TILE + 1) + w] : 0.0f;
+    const float sp = r < n_ch ? s_sp[r * (POOL_TILE + 1) + w] : 0.0f;
+    const bool ok = r < n_ch && sp <= thr && f > 0.0f;   // NaN fails
+    bool dup = false;
 #pragma unroll
-    for (int u = 0; u < POOL_GROUP; ++u) {
-      const bool in = r0 + u < n_ch;
-      f[u] = in ? f_sorted[(size_t)(r0 + u) * F + t] : 0.0f;
-      sp[u] = in ? sp_sorted[(size_t)(r0 + u) * F + t] : 0.0f;
-    }
-  };
-  fetch(0, f_cur, sp_cur);
-  for (int r0 = 0; r0 < n_ch; r0 += POOL_GROUP) {
-    float f_next[POOL_GROUP], sp_next[POOL_GROUP];
-    fetch(r0 + POOL_GROUP, f_next, sp_next);
-#pragma unroll
-    for (int u = 0; u < POOL_GROUP; ++u) {
-      if (r0 + u >= n_ch) break;
-      const float f = f_cur[u], sp = sp_cur[u];
-      const bool ok = (sp <= thr) && (f > 0.0f);
-      bool dup = false;
+    for (int k = 0; k < MAX_POOL; ++k)
+      if (k < K) dup = dup | pool_dup(f, p[k]);
+    // rounds: the lowest rank that agrees and is no duplicate is the next
+    // one the serial walk keeps
+    unsigned m = __ballot_sync(FULL, ok && !dup);
+    while (m != 0u && n < K) {
+      const int src = __ffs(m) - 1;
+      const float fn = __shfl_sync(FULL, f, src);
+      // pooled + where(take, one_hot(n) * f, 0): slot n gets 0 + f, the
+      // others + 0 * f, which is +0, or NaN where f is +inf
+      const float z = __fmul_rn(0.0f, fn);
+      float pn = 0.0f;
 #pragma unroll
       for (int k = 0; k < MAX_POOL; ++k) {
-        if (k < K) {
-          const float lim = __fmul_rn(0.05f, clamp_min_nan(p[k], 1e-9f));
-          dup = dup || (fabsf(__fsub_rn(f, p[k])) < lim);
-        }
+        if (k < K) p[k] = __fadd_rn(p[k], k == n ? fn : z);
+        pn = k == n ? p[k] : pn;
       }
-      if (ok && !dup && n < K) {
-#pragma unroll
-        for (int k = 0; k < MAX_POOL; ++k)
-          if (k == n) p[k] = __fadd_rn(p[k], f);   // the empty slot: 0 + f
-        ++n;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < POOL_GROUP; ++u) {
-      f_cur[u] = f_next[u];
-      sp_cur[u] = sp_next[u];
+      ++n;
+      // dup only grows as a slot fills (an empty slot is left while a
+      // later rank can still be kept), so each lane tests the new slot
+      // alone; but a +inf kept turns every other slot to NaN, whose tests
+      // fail, so then only the new slot's test stands
+      dup = (isinf(fn) ? false : dup) | pool_dup(f, pn);
+      m = __ballot_sync(FULL, ok && !dup && lane > src);
     }
   }
+  if (lane < K) {
+    float v = 0.0f;
 #pragma unroll
-  for (int k = 0; k < MAX_POOL; ++k)
-    if (k < K) out[(size_t)t * K + k] = p[k];
+    for (int k = 0; k < MAX_POOL; ++k) v = k == lane ? p[k] : v;
+    out[(size_t)(t0 + w) * K + lane] = v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -523,89 +577,222 @@ int launch_viterbi(const float* emits, const float* logf,
 }
 
 // ---------------------------------------------------------------------------
-// W3: DIO's contour extension loops, one warp
+// W3: DIO's contour walks, staged in shared memory, one chain thread (see
+// the note at the top)
 // ---------------------------------------------------------------------------
 
-// dio._select_best_f0: the candidate nearest (3 prev1 - prev2) / 2, or 0
-// when even it is off by allowed or more (relative)
-__device__ __forceinline__ float select_best(float prev1, float prev2,
-                                             float cv, int lane, int C,
-                                             float allowed) {
+// dio._select_best_f0 on the frame's candidates cv (CW slots, the first C
+// real): the candidate nearest (3 prev1 - prev2) / 2, or 0 when even it is
+// off by allowed or more (relative).  The arg-min is a tree of selects over
+// the slots in registers: a block's lower half holds the lower indices, so
+// the upper half's pair is taken only where it comes strictly first
+// (replaces(): NaN first, ties to the lower index) and the candidate rides
+// along.  Slots past C hold +inf, which never comes first.
+template <int CW>
+__device__ __forceinline__ float fix_select(float prev1, float prev2,
+                                            const float (&cv)[CW], int C,
+                                            float allowed) {
+  // the halving as a multiply by 0.5: the same exact value correctly
+  // rounded, so the same bits as the plain version's division by 2
   const float ref =
-      __fdiv_rn(__fsub_rn(__fmul_rn(prev1, 3.0f), prev2), 2.0f);
-  float e = lane < C ? fabsf(__fsub_rn(ref, cv)) : __int_as_float(0x7f800000);
-  int i = lane;
+      __fmul_rn(__fsub_rn(__fmul_rn(prev1, 3.0f), prev2), 0.5f);
+  float e[CW], c[CW];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float eo = __shfl_xor_sync(FULL, e, off);
-    const int io = __shfl_xor_sync(FULL, i, off);
-    // LessOrNan on (value, index): the pair that PyTorch's argmin keeps
-    if (before(eo, io, e, i)) { e = eo; i = io; }
+  for (int k = 0; k < CW; ++k) {
+    e[k] = k < C ? fabsf(__fsub_rn(ref, cv[k])) : __int_as_float(0x7f800000);
+    c[k] = cv[k];
   }
-  const float cb = __shfl_sync(FULL, cv, i);
-  const bool fail = __fdiv_rn(e, clamp_min_nan(ref, 1e-12f)) >= allowed;
-  return fail ? 0.0f : cb;
+#pragma unroll
+  for (int w = 1; w < CW; w *= 2) {
+#pragma unroll
+    for (int k = 0; k + w < CW; k += 2 * w) {
+      const bool take = replaces(e[k + w], e[k]);
+      e[k] = take ? e[k + w] : e[k];
+      c[k] = take ? c[k + w] : c[k];
+    }
+  }
+  const bool fail = __fdiv_rn(e[0], clamp_min_nan(ref, 1e-12f)) >= allowed;
+  return fail ? 0.0f : c[0];
 }
 
-__global__ void __launch_bounds__(32)
+// a frame's C candidates (row t of a (F, C) array) into the CW slots
+template <int CW>
+__device__ __forceinline__ void fix_row(float (&c)[CW], const float* cv,
+                                        int t, int C) {
+  const float* row = cv + (size_t)t * C;
+#pragma unroll
+  for (int k = 0; k < CW; ++k) c[k] = k < C ? row[k] : 0.0f;
+}
+
+// the first frame u in [t, end) whose inside flag (s2 > 0) is `want`, or
+// end: the warp tests 32 frames a ballot
+__device__ __forceinline__ int fix_next(const float* s2, int t, int end,
+                                        bool want) {
+  const int lane = threadIdx.x & 31;
+  for (; t < end; t += 32) {
+    const int u = t + lane;
+    const unsigned m =
+        __ballot_sync(FULL, u < end && ((s2[u] > 0.0f) == want));
+    if (m != 0u) return t + __ffs(m) - 1;
+  }
+  return end;
+}
+
+// the last frame u in [lo, t] whose inside flag is `want`, or lo - 1
+__device__ __forceinline__ int fix_prev(const float* s2, int t, int lo,
+                                        bool want) {
+  const int lane = threadIdx.x & 31;
+  for (; t >= lo; t -= 32) {
+    const int u = t - lane;
+    const unsigned m =
+        __ballot_sync(FULL, u >= lo && ((s2[u] > 0.0f) == want));
+    if (m != 0u) return t - (__ffs(m) - 1);
+  }
+  return lo - 1;
+}
+
+// The forward walk (step 3) by one warp, every lane the same carry: s3
+// holds each frame's value where the carry does not reach it (in ? step2 :
+// 0).  A frame selects where it extends a gap (alive, prev1 > 0) or is a
+// section's first frame reached by a chain that survived its gap; those
+// frames run one at a time, the next row read while this one selects.
+// Elsewhere the carry cannot reach a value: inside a section (was_gap
+// false) every frame keeps step2, and once a gap's chain is dead every gap
+// frame is 0 and the next section's first keeps step2.  The warp jumps
+// such runs to their end with fix_next and reads the carry (prev1, prev2)
+// back from s3, where every lane stored each value it selected.
+template <int CW>
+__device__ void fix_forward(const float* cv, const float* s2, float* s3,
+                            int F, int C, float allowed) {
+  float prev2 = 0.0f, prev1 = 0.0f;
+  bool alive = false, was_gap = false;
+  int t = 0;
+  float s2c = s2[0], cur[CW];
+  fix_row(cur, cv, 0, C);
+  while (t < F) {
+    const bool in = s2c > 0.0f;
+    if ((in & was_gap & alive) | (!in & alive & (prev1 > 0.0f))) {
+      const int tn = min(t + 1, F - 1);
+      float nxt[CW];
+      fix_row(nxt, cv, tn, C);
+      const float s2n = s2[tn];
+      const float v = fix_select(prev1, prev2, cur, C, allowed);
+      s3[t] = v;
+      alive = in | (v > 0.0f);
+      was_gap = !in;
+      prev2 = prev1;
+      prev1 = v;
+      ++t;
+#pragma unroll
+      for (int k = 0; k < CW; ++k) cur[k] = nxt[k];
+      s2c = s2n;
+      continue;
+    }
+    // a section's frames up to the next gap, or a dead gap's up to the
+    // next section
+    t = fix_next(s2, t + 1, F, !in);
+    alive = in;
+    was_gap = !in;
+    if (t < F) {
+      prev1 = s3[t - 1];
+      prev2 = t >= 2 ? s3[t - 2] : 0.0f;
+      s2c = s2[t];
+      fix_row(cur, cv, t, C);
+    }
+  }
+}
+
+// The backward walk (step 4) over frames F - 1 .. 1 (frame 0 is never
+// written), s3 read and overwritten in place: a gap frame selects while
+// the chain is alive; a section's frames and a dead gap's keep step 3,
+// jumped with fix_prev.
+template <int CW>
+__device__ void fix_backward(const float* cv, const float* s2, float* s3,
+                             int F, int C, float allowed) {
+  float prev2 = 0.0f, prev1 = 0.0f;
+  bool alive = false;
+  int t = F - 1;
+  float s2c = s2[t], cur[CW];
+  fix_row(cur, cv, t, C);
+  while (t >= 1) {
+    const bool in = s2c > 0.0f;
+    if (!in & alive & (prev1 > 0.0f)) {
+      const int tn = t - 1;
+      float nxt[CW];
+      fix_row(nxt, cv, tn, C);
+      const float s2n = s2[tn];
+      const float v = fix_select(prev1, prev2, cur, C, allowed);
+      s3[t] = v;
+      alive = v > 0.0f;
+      prev2 = prev1;
+      prev1 = v;
+      --t;
+#pragma unroll
+      for (int k = 0; k < CW; ++k) cur[k] = nxt[k];
+      s2c = s2n;
+      continue;
+    }
+    t = fix_prev(s2, t - 1, 1, !in);
+    alive = in;
+    if (t >= 1) {
+      prev1 = s3[t + 1];
+      prev2 = t + 2 < F ? s3[t + 2] : 0.0f;
+      s2c = s2[t];
+      fix_row(cur, cv, t, C);
+    }
+  }
+}
+
+// true when W3's pass fits a block's shared memory: F (C + 2) floats
+__host__ __device__ constexpr bool fix_staged(int F, int C) {
+  return (long long)F * (C + 2) * 4 <= SMEM_MAX;
+}
+
+template <int CW>
+__global__ void __launch_bounds__(FIX_THREADS)
 fix_contour_kernel(const float* __restrict__ step2,
                    const float* __restrict__ cands, int F, int C,
                    float allowed, float* out) {
-  // a frame is inside a voiced section where step 2 kept it: step2 > 0
-  const int lane = threadIdx.x;
-  // forward: step 3, written to out
-  float prev2 = 0.0f, prev1 = 0.0f;
-  bool alive = false, was_gap = false;
-  float cv_n = lane < C ? cands[lane] : 0.0f;
-  float s2_n = step2[0];
-  bool in_n = step2[0] > 0.0f;
-  for (int t = 0; t < F; ++t) {
-    const float cv = cv_n, s2 = s2_n;
-    const bool in = in_n;
-    if (t + 1 < F) {
-      cv_n = lane < C ? cands[(size_t)(t + 1) * C + lane] : 0.0f;
-      s2_n = step2[t + 1];
-      in_n = s2_n > 0.0f;
-    }
-    const bool overwrite = in && was_gap && alive;
-    const bool can = !in && alive && (prev1 > 0.0f);
-    // the carry is the same in every lane, so this branch is uniform
-    const float v_ext = (overwrite || can)
-        ? select_best(prev1, prev2, cv, lane, C, allowed) : 0.0f;
-    const float v = in ? (overwrite ? v_ext : s2) : (can ? v_ext : 0.0f);
-    alive = in || (can && v_ext > 0.0f);
-    prev2 = prev1;
-    prev1 = v;
-    was_gap = !in;
-    if (lane == 0) out[t] = v;
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x;
+  // staged: the candidates, step2 and step 3 in shared memory; else the
+  // same walks on device memory, step 3 in out
+  const bool staged = fix_staged(F, C);
+  const float* cv = staged ? fsm : cands;
+  const float* s2 = staged ? fsm + (size_t)F * C : step2;
+  float* s3 = staged ? fsm + (size_t)F * (C + 1) : out;
+  if (staged)
+    for (int i = tid; i < F * C; i += FIX_THREADS)
+      cp_async4(fsm + i, cands + i);
+  for (int t = tid; t < F; t += FIX_THREADS) {
+    const float x = step2[t];
+    if (staged) fsm[(size_t)F * C + t] = x;
+    s3[t] = x > 0.0f ? x : 0.0f;
   }
-  __syncwarp();
-  // backward: step 4 over frames F-1 .. 1 (frame 0 is never written)
-  prev2 = 0.0f;
-  prev1 = 0.0f;
-  alive = false;
-  if (F < 2) return;
-  cv_n = lane < C ? cands[(size_t)(F - 1) * C + lane] : 0.0f;
-  float s3_n = out[F - 1];
-  in_n = step2[F - 1] > 0.0f;
-  for (int t = F - 1; t >= 1; --t) {
-    const float cv = cv_n, s3 = s3_n;
-    const bool in = in_n;
-    if (t - 1 >= 1) {
-      cv_n = lane < C ? cands[(size_t)(t - 1) * C + lane] : 0.0f;
-      s3_n = out[t - 1];
-      in_n = step2[t - 1] > 0.0f;
-    }
-    const bool can = !in && alive && (prev1 > 0.0f);
-    const float v_ext =
-        can ? select_best(prev1, prev2, cv, lane, C, allowed) : 0.0f;
-    const float v = can ? v_ext : s3;
-    alive = in || (can && v_ext > 0.0f);
-    prev2 = prev1;
-    prev1 = v;
-    __syncwarp();                 // every lane has read out[t]
-    if (lane == 0) out[t] = v;
+  cp_async_wait_all();
+  __syncthreads();
+  if (tid < 32) {
+    fix_forward<CW>(cv, s2, s3, F, C, allowed);
+    fix_backward<CW>(cv, s2, s3, F, C, allowed);
   }
+  __syncthreads();
+  if (staged)
+    for (int t = tid; t < F; t += FIX_THREADS) out[t] = s3[t];
+}
+
+template <int CW>
+int launch_fix_contour(const float* step2, const float* cands, int F, int C,
+                       float allowed, float* out, int slot,
+                       cudaStream_t stream) {
+  const size_t smem = fix_staged(F, C) ? (size_t)F * (C + 2) * 4 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = raise_smem_once(
+        (const void*)fix_contour_kernel<CW>, slot, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fix_contour_kernel<CW><<<1, FIX_THREADS, smem, stream>>>(step2, cands, F, C,
+                                                          allowed, out);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -721,8 +908,9 @@ smooth_kernel(const float* __restrict__ ext, const float* __restrict__ ov,
 }
 
 // ---------------------------------------------------------------------------
-// chain probes: W2's and W3's frame-to-frame dependency with a minimal
-// step, timed by chip_smoke.py as the floor of those chains (one warp)
+// probes timed by chip_smoke.py as measured floors: W2's and W3's
+// frame-to-frame dependency with a minimal step (one warp), and W1's and
+// W3's launch
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(32)
@@ -743,6 +931,10 @@ chain_probe_kernel(const float* __restrict__ in, int which, int steps,
   out[lane] = c;
 }
 
+// W1's and W3's floor: an empty launch with a kernel's grid, block and
+// shared memory
+__global__ void launch_floor_kernel() {}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -753,10 +945,18 @@ chain_probe_kernel(const float* __restrict__ in, int which, int steps,
 extern "C" int qp_world_pool(const float* f_sorted, const float* sp_sorted,
                              int n_ch, int F, int K, float thr, float* out,
                              void* stream) {
-  if (K < 1 || K > MAX_POOL) return (int)cudaErrorInvalidValue;
-  pool_kernel<<<(F + POOL_THREADS - 1) / POOL_THREADS, POOL_THREADS, 0,
-                (cudaStream_t)stream>>>(f_sorted, sp_sorted, n_ch, F, K,
-                                        thr, out);
+  if (K < 1 || K > MAX_POOL || n_ch < 1 || F < 1
+      || pool_smem(n_ch) > (size_t)SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = pool_smem(n_ch);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = raise_smem_once((const void*)pool_kernel, 1,
+                                            SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+  }
+  pool_kernel<<<(F + POOL_TILE - 1) / POOL_TILE, POOL_THREADS, smem,
+                (cudaStream_t)stream>>>(f_sorted, sp_sorted, n_ch, F, K, thr,
+                                        out);
   return (int)cudaGetLastError();
 }
 
@@ -790,10 +990,19 @@ extern "C" int qp_world_fix_contour(const float* step2, const float* cands,
                                     int F, int C, float allowed, float* out,
                                     void* stream) {
   if (F < 1 || C < 1 || C > MAX_CANDS) return (int)cudaErrorInvalidValue;
-  fix_contour_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(step2, cands, F, C,
-                                                         allowed, out);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  // the fewest slots that hold C: at DIO's C = 7 the 32-slot build alone
+  // takes twice the 8-slot one's time (PERF.md section 6)
+  if (C <= 8)
+    return launch_fix_contour<8>(step2, cands, F, C, allowed, out, 12, s);
+  if (C <= 16)
+    return launch_fix_contour<16>(step2, cands, F, C, allowed, out, 13, s);
+  return launch_fix_contour<32>(step2, cands, F, C, allowed, out, 14, s);
 }
+
+// 1 when W3 stages a pass of F frames of C candidates in shared memory,
+// 0 when it walks device memory
+extern "C" int qp_world_fix_staged(int F, int C) { return fix_staged(F, C); }
 
 extern "C" int qp_world_smooth(const float* ext, const float* ov, int F,
                                int W, int n_off, float* out, void* stream) {
@@ -822,5 +1031,24 @@ extern "C" int qp_world_chain_probe(const float* in, int which, int steps,
   if (which < 0 || which > 1 || steps < 0) return (int)cudaErrorInvalidValue;
   chain_probe_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(in, which, steps,
                                                          out);
+  return (int)cudaGetLastError();
+}
+
+// an empty launch with W1's (which 0: a = n_ch, b = F) or W3's (which 1:
+// a = F, b = C) grid, block and shared memory
+extern "C" int qp_world_launch_floor(int which, int a, int b, void* stream) {
+  if (which < 0 || which > 1 || a < 1 || b < 1
+      || (which == 0 && pool_smem(a) > (size_t)SMEM_MAX))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = which == 0 ? pool_smem(a)
+                      : fix_staged(a, b) ? (size_t)a * (b + 2) * 4 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = raise_smem_once((const void*)launch_floor_kernel,
+                                            15, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = which == 0 ? (b + POOL_TILE - 1) / POOL_TILE : 1;
+  launch_floor_kernel<<<blocks, which == 0 ? POOL_THREADS : FIX_THREADS, smem,
+                        (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

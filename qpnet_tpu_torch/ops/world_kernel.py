@@ -8,12 +8,16 @@ is one launch of a kernel of `csrc/world_kernel.cu` (see the note there
 for each kernel's design and bound):
 
   W1 `pool`: harvest's candidate pooling over channel ranks
-     (qpnet_tpu/dsp/world/jax_f0.py::_pool_candidates, its fori_loop);
+     (qpnet_tpu/dsp/world/jax_f0.py::_pool_candidates, its fori_loop): a
+     warp a frame, lanes over ranks, the kept ranks found in ballot rounds;
   W2 `viterbi`: harvest's contour Viterbi, forward and back-track
      (jax_f0.py::_viterbi, its two scans): three warps stage the
      transitions, one runs the chain with shuffles;
   W3 `fix_contour`: DIO's FixF0Contour steps 3-4, the forward and the
-     backward extension loops (jax_f0.py::_fix_contour_scan, its scans);
+     backward extension loops (jax_f0.py::_fix_contour_scan, its scans):
+     the pass staged in shared memory, one warp walking the frames whose
+     value the carry decides (the nearest candidate a tree of selects in
+     registers) and jumping the runs it cannot reach 32 frames a ballot;
   W4 `smooth`: the fractional-box spectral smoothing over 2*kmax offsets
      (qpnet_tpu/dsp/world/jax_analysis.py::_jax_linear_smoothing),
      SMOOTH_R bins a thread over a window held in registers.
@@ -27,6 +31,7 @@ index on ties), so on the card the two give the same bits.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -34,8 +39,10 @@ import torch
 
 KERNELS = ("pool", "viterbi", "fix_contour", "smooth")
 MAX_POOL = 16      # W1: the most candidates a frame keeps (registers)
+POOL_TILE = 8      # W1: frames a block, a warp each
 MAX_STATES = 16    # W2: the most states (P lanes each of one warp)
-MAX_CANDS = 32     # W3: the most band candidates (lanes of the warp)
+MAX_CANDS = 32     # W3: the most band candidates (slots in registers)
+SMEM_MAX = 232448  # shared memory an H100 block may use (csrc SMEM_MAX)
 # W2 keeps its (F - 1, S) uint8 back-pointers in shared memory up to this
 # many bytes; past it they go to device memory (csrc VIT_BACK_SMEM)
 VITERBI_BACK_SMEM = 81920
@@ -77,6 +84,25 @@ def viterbi_spills(F: int, K: int) -> bool:
     """True when W2's back-pointers, (F - 1) * (K + 1) bytes, do not fit in
     its shared memory and go to device memory instead."""
     return (F - 1) * (K + 1) > VITERBI_BACK_SMEM
+
+
+def pool_max_ranks() -> int:
+    """The most ranks W1 takes: its block stages n_ch x POOL_TILE f and sp
+    values, each rank's row POOL_TILE + 1 floats (csrc pool_smem)."""
+    return SMEM_MAX // (2 * (POOL_TILE + 1) * 4)
+
+
+def fix_contour_slots(C: int) -> int:
+    """W3's candidate slots a frame (csrc CW): 8, 16 or 32, the first C
+    real."""
+    return 8 if C <= 8 else 16 if C <= 16 else 32
+
+
+def fix_contour_staged(F: int, C: int) -> bool:
+    """True when W3 stages the pass in shared memory (csrc fix_staged):
+    F frames of C candidates, step2 and step 3, F (C + 2) floats; longer
+    passes walk the same way on device memory."""
+    return F * (C + 2) * 4 <= SMEM_MAX
 
 
 def smooth_layout(F: int, W: int, n_off: int, items: int = 1) -> dict:
@@ -230,29 +256,54 @@ def smooth_reference(ext, ov):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# the library's plain C entry points and their arguments; each returns int
+ENTRY_POINTS = {
+    "qp_world_pool": [_P, _P, _I, _I, _I, _F, _P, _P],
+    "qp_world_viterbi": [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+    "qp_world_fix_contour": [_P, _P, _I, _I, _F, _P, _P],
+    "qp_world_smooth": [_P, _P, _I, _I, _I, _P, _P],
+    "qp_world_chain_probe": [_P, _I, _I, _P, _P],
+    "qp_world_launch_floor": [_I, _I, _I, _P],
+    "qp_world_viterbi_back_smem": [],
+    "qp_world_fix_staged": [_I, _I],
+}
 
 
 _loaded = []
 
 
+def load(src: bytes | None = None, name: str = "world_kernel"):
+    """The library built from csrc/world_kernel.cu, or from the CUDA source
+    `src` (another version of that file) built as `name`, with the entry
+    points it has typed."""
+    from qpnet_tpu_torch.ops import _build
+    lib = (_build.load("world_kernel") if src is None
+           else ctypes.CDLL(str(_build.build_source(name, src))))
+    for entry, argtypes in ENTRY_POINTS.items():
+        if hasattr(lib, entry):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
 def _lib():
     """The built library with its entry points typed, once per process."""
     if not _loaded:
-        from qpnet_tpu_torch.ops import _build
-        lib = _build.load("world_kernel")
-        lib.qp_world_pool.argtypes = [_P, _P, _I, _I, _I, _F, _P, _P]
-        lib.qp_world_viterbi.argtypes = [_P, _P, _P, _I, _I, _F, _F, _P, _P,
-                                         _P]
-        lib.qp_world_fix_contour.argtypes = [_P, _P, _I, _I, _F, _P, _P]
-        lib.qp_world_smooth.argtypes = [_P, _P, _I, _I, _I, _P, _P]
-        lib.qp_world_chain_probe.argtypes = [_P, _I, _I, _P, _P]
-        lib.qp_world_viterbi_back_smem.argtypes = []
-        for fn in (lib.qp_world_pool, lib.qp_world_viterbi,
-                   lib.qp_world_fix_contour, lib.qp_world_smooth,
-                   lib.qp_world_chain_probe, lib.qp_world_viterbi_back_smem):
-            fn.restype = ctypes.c_int
-        _loaded.append(lib)
+        _loaded.append(load())
     return _loaded[0]
+
+
+@contextlib.contextmanager
+def launching(lib):
+    """Within the block the wrappers launch the kernels of `lib` (from
+    load(src, name)): for timing versions of csrc/world_kernel.cu in one
+    process."""
+    saved = list(_loaded)
+    _loaded[:] = [lib]
+    try:
+        yield
+    finally:
+        _loaded[:] = saved
 
 
 def build() -> None:
@@ -297,9 +348,11 @@ def pool(f_sorted, sp_sorted, agreement_threshold: float,
     f_sorted, sp_sorted = _f32(f_sorted), _f32(sp_sorted)
     n_ch, F = f_sorted.shape
     K = int(max_candidates)
-    if sp_sorted.shape != f_sorted.shape or not 1 <= K <= MAX_POOL:
+    if (sp_sorted.shape != f_sorted.shape or not 1 <= K <= MAX_POOL
+            or not 1 <= n_ch <= pool_max_ranks() or F < 1):
         raise ValueError(f"pool: shapes {tuple(f_sorted.shape)} "
-                         f"{tuple(sp_sorted.shape)}, K={K} (1..{MAX_POOL})")
+                         f"{tuple(sp_sorted.shape)} (1..{pool_max_ranks()} "
+                         f"ranks), K={K} (1..{MAX_POOL})")
     out = torch.empty((F, K), dtype=torch.float32, device=f_sorted.device)
     _launch("pool", _lib().qp_world_pool, f_sorted.device,
             f_sorted.data_ptr(), sp_sorted.data_ptr(), n_ch, F, K,
@@ -341,7 +394,7 @@ def fix_contour(step2, cands_t, allowed_range: float):
         return fix_contour_reference(step2, cands_t, allowed_range)
     step2, cands_t = _f32(step2), _f32(cands_t)
     F, C = cands_t.shape
-    if step2.shape != (F,) or not 1 <= C <= MAX_CANDS:
+    if step2.shape != (F,) or F < 1 or not 1 <= C <= MAX_CANDS:
         raise ValueError(f"fix_contour: step2 {tuple(step2.shape)}, cands_t "
                          f"{tuple(cands_t.shape)} (1..{MAX_CANDS} candidates)")
     out = torch.empty((F,), dtype=torch.float32, device=step2.device)
@@ -392,7 +445,33 @@ def chain_probe(name: str, steps: int, inp: torch.Tensor) -> torch.Tensor:
     return out
 
 
+LAUNCH_FLOORS = ("pool", "fix_contour")
+
+
+def launch_floor(name: str, dims, device) -> None:
+    """Launch an empty kernel with the grid, block and shared memory that
+    W1 ("pool", dims (n_ch, F)) or W3 ("fix_contour", dims (F, C)) takes,
+    on `device` (a card): the floor of that kernel's launch, for timing.
+    Not a path kernel, so not counted."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"launch_floor runs on the card, got {dev}")
+    with torch.cuda.device(dev):
+        err = _lib().qp_world_launch_floor(
+            LAUNCH_FLOORS.index(name), int(dims[0]), int(dims[1]),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"world_kernel launch floor {name} failed: CUDA "
+                           f"error {err}")
+
+
 def viterbi_back_smem() -> int:
     """The built kernel's back-pointer capacity in bytes (VIT_BACK_SMEM),
     which must equal VITERBI_BACK_SMEM."""
     return _lib().qp_world_viterbi_back_smem()
+
+
+def fix_staged_built(F: int, C: int) -> bool:
+    """The built kernel's answer to fix_contour_staged(F, C), which must
+    be the same."""
+    return bool(_lib().qp_world_fix_staged(int(F), int(C)))

@@ -1,8 +1,9 @@
-"""PyTorch port: the orders of operations of the redesigned W2 (harvest's
-Viterbi) and W4 (the fractional-box smoothing) in
-`qpnet_tpu_torch/csrc/world_kernel.cu`, modelled in numpy and held bit for
-bit to the plain versions of `qpnet_tpu_torch/ops/world_kernel.py`; and the
-wrappers' plain versions past W2's shared-memory capacity against JAX.
+"""PyTorch port: the orders of operations of the redesigned W1 (harvest's
+candidate pooling), W2 (its Viterbi), W3 (DIO's contour walks) and W4 (the
+fractional-box smoothing) in `qpnet_tpu_torch/csrc/world_kernel.cu`,
+modelled in numpy and held bit for bit to the plain versions of
+`qpnet_tpu_torch/ops/world_kernel.py` and (W1, W3) to the JAX stages; and
+the wrappers' plain versions past W2's shared-memory capacity against JAX.
 
 The kernels build and run only on the card (chip_smoke.py phase 15 holds
 them to the plain versions there, on these tests' inputs too); these
@@ -19,7 +20,19 @@ bits:
   * W4's register-blocked loop (SMOOTH_R bins a thread over a 16-byte
     window, the offsets 4 at a time then the remainder, the staged row's
     padding never reaching a stored bin) equals `smooth_reference` bit for
-    bit at CheapTrick's and D4C's widths and offset counts.
+    bit at CheapTrick's and D4C's widths and offset counts;
+  * W1's ballot rounds (a warp a frame, lane r holding ranks r, r + 32,
+    ..; the lowest lane past the last kept whose rank agrees and is no
+    duplicate is the next kept; each lane then tests the new slot only)
+    give `pool_reference`'s slots, +inf's NaN slots included, and inside
+    device_f0's stage JAX's `_pool_candidates`, at 1-97 ranks and K 1-16;
+  * W3's walks (step 3 starting as each frame's value where the carry
+    cannot reach it; frame by frame only where it can, the nearest
+    candidate a tree of selects over CW slots in registers, the halving a
+    multiply by 0.5; the runs between jumped 32 frames a ballot, the carry
+    read back from step 3; the backward walk on the forward's step 3 in
+    place) give `fix_contour_reference`'s contour, and inside device_f0's
+    stage JAX's `_fix_contour_scan`, at C = 1-32.
 Tolerances: none; every comparison is of bits (float32 viewed as int32),
 except that W4's NaN outputs are compared as NaN: on the CPU the sign of a
 NaN that an add of two NaNs returns depends on the operand order of the
@@ -41,7 +54,7 @@ from qpnet_tpu_torch.ops import world_kernel_cases as CASES
 
 TC, UC = CASES.TRANSITION_COST, CASES.UNVOICED_COST
 VIT_THREADS = 128    # csrc VIT_THREADS: the back-track's threads
-SMEM_MAX = 232448    # csrc SMEM_MAX: shared memory an H100 block may use
+SMEM_MAX = WK.SMEM_MAX   # shared memory an H100 block may use
 
 
 def _bits(a):
@@ -403,3 +416,448 @@ def test_smooth_layout_past_a_block_is_refused():
     which the wrapper raises)."""
     assert WK.smooth_layout(1000, 1, 400)["bytes"] > SMEM_MAX
     assert WK.smooth_layout(3, 1, 400)["rows"] == 3
+
+
+# ---------------------------------------------------------------------------
+# W1
+# ---------------------------------------------------------------------------
+
+F32 = np.float32
+THR = CASES.AGREEMENT_THRESHOLD
+ALLOWED = CASES.ALLOWED_RANGE
+
+
+def _pool_dup(f, p):
+    """csrc pool_dup: |f - p| < 0.05 * clamp_min(p, 1e-9), each step
+    rounded in float32 (np.maximum keeps NaN, as clamp_min does)."""
+    with np.errstate(all="ignore"):
+        return np.abs(f - p) < F32(0.05) * np.maximum(p, F32(1e-9))
+
+
+def pool_model(f_sorted, sp_sorted, thr, K):
+    """The kernel's W1 in numpy: a warp a frame; lane r holds rank r0 + r
+    of each group of 32 ranks, its ok (spread <= thr, f > 0) and its dup
+    flag against all K slots (the empty ones hold 0); rounds: the lowest
+    lane past the last kept with ok and not dup is kept (__ffs of a
+    ballot), its f broadcast, slot n taking 0 + f and the others + 0 * f
+    (NaN for +inf), and each lane's dup ORed with its test against the new
+    slot alone (reset first when the kept f is +inf: every other slot is
+    then NaN); the groups stop once K are kept.  Returns (F, K)."""
+    n_ch, F = f_sorted.shape
+    thr = F32(thr)
+    lanes = np.arange(32)
+    out = np.zeros((F, K), F32)
+    with np.errstate(all="ignore"):
+        for t in range(F):
+            p, n = np.zeros(K, F32), 0
+            for r0 in range(0, n_ch, 32):
+                if n >= K:
+                    break
+                r = r0 + lanes
+                valid = r < n_ch
+                f = np.where(valid, f_sorted[np.minimum(r, n_ch - 1), t],
+                             F32(0.0))
+                sp = np.where(valid, sp_sorted[np.minimum(r, n_ch - 1), t],
+                              F32(0.0))
+                ok = valid & (sp <= thr) & (f > 0)
+                dup = np.zeros(32, bool)
+                for k in range(K):
+                    dup |= _pool_dup(f, p[k])
+                m = ok & ~dup
+                while m.any() and n < K:
+                    src = int(np.argmax(m))
+                    fn = f[src]
+                    p = p + np.where(np.arange(K) == n, fn, F32(0.0) * fn)
+                    pn, n = p[n], n + 1
+                    dup = (np.zeros(32, bool) if np.isinf(fn) else dup) \
+                        | _pool_dup(f, pn)
+                    m = ok & ~dup & (lanes > src)
+            out[t] = p
+    return out
+
+
+POOL_CASES = [(0, 81, 37, 6), (1, 1, 9, 1), (2, 31, 17, 6), (3, 33, 16, 15),
+              (4, 97, 23, 16), (5, 81, 8, 16), (6, 40, 1, 6), (7, 64, 12, 1),
+              (8, 33, 9, 2)]
+
+
+@pytest.mark.parametrize("seed,n_ch,F,K", POOL_CASES)
+def test_pool_model_bit_equal_to_plain_with_agreeing_inf(seed, n_ch, F, K):
+    """With an agreeing +inf planted, the model keeps the plain version's
+    NaN slots (0 * inf added to the slots it does not fill)."""
+    f, sp = CASES.pool_edge_inputs(seed, n_ch, F, agreeing_inf=True)
+    got = pool_model(f, sp, THR, K)
+    want = WK.pool_reference(torch.from_numpy(f), torch.from_numpy(sp), THR,
+                             K).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("seed,n_ch,F,K", POOL_CASES)
+def test_pool_model_bit_equal_to_plain_and_jax(seed, n_ch, F, K,
+                                                monkeypatch):
+    f, sp = CASES.pool_edge_inputs(seed, n_ch, F)
+    got = pool_model(f, sp, THR, K)
+    want = WK.pool_reference(torch.from_numpy(f), torch.from_numpy(sp), THR,
+                             K).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    # inside the stage (device_f0 sorts by spread, stably, then calls W1)
+    # against JAX's: the inputs are already in spread order
+    monkeypatch.setattr(device_f0.world_kernel, "pool", lambda a, b, c, k:
+                        torch.from_numpy(pool_model(a.numpy(), b.numpy(),
+                                                    c, k)))
+    stage = device_f0._pool_candidates(torch.from_numpy(f),
+                                       torch.from_numpy(sp), THR, K).numpy()
+    jax_out = np.asarray(jax_f0._pool_candidates(jnp.asarray(f),
+                                                 jnp.asarray(sp), THR, K))
+    np.testing.assert_array_equal(_bits(stage), _bits(got))
+    np.testing.assert_array_equal(_bits(jax_out), _bits(got))
+
+
+def test_pool_edge_inputs_reach_the_rules():
+    """The planted cases reach the kept slots: an agreeing +inf turns the
+    other slots to NaN, tiny candidates are dropped while a slot is empty,
+    rows fill to K."""
+    f, sp = CASES.pool_edge_inputs(0, 81, 37, agreeing_inf=True)
+    out = WK.pool_reference(torch.from_numpy(f), torch.from_numpy(sp), THR,
+                            6).numpy()
+    assert np.isinf(out).any() and np.isnan(out).any()
+    lim0 = F32(0.05) * F32(1e-9)
+    agree = (f > 0) & (sp <= THR)
+    below, at = agree & (f < lim0), agree & (f >= lim0) & (f < 1e-9)
+    assert below.any() and not np.isin(out, f[below]).any()
+    assert np.isin(out, f[at]).any()
+    assert ((out > 0).sum(1) == 6).any() and (out == 0).any()
+    assert np.isnan(sp).any() and np.isnan(f).any()
+    # frame 5 at K = 2: the tiny rank fills slot 1, so the second +inf is
+    # not kept and slot 0 stays +inf
+    f, sp = CASES.pool_edge_inputs(8, 33, 9, agreeing_inf=True)
+    out = WK.pool_reference(torch.from_numpy(f), torch.from_numpy(sp), THR,
+                            2).numpy()
+    assert np.isinf(out[5, 0]) and np.isnan(out[5, 1])
+
+
+def test_pool_keeps_exactly_the_5_percent_edge():
+    """A rank 5% from a kept one stays (|f - p| equals the limit); one ulp
+    inside is a duplicate; below 0.05f * 1e-9f a candidate is a duplicate
+    of the empty slots, at it one is kept: the model as the plain
+    version."""
+    lim0 = F32(0.05) * F32(1e-9)
+    f = np.array([[100.0, lim0, lim0], [105.0, 100.0, 1.0],
+                  [np.nextafter(F32(105.0), F32(0.0)), 0.0, 0.0],
+                  [np.nextafter(lim0, F32(0.0)), 0.0, 0.0]], F32)
+    sp = np.full_like(f, 0.05)
+    got = pool_model(f, sp, THR, 4)
+    want = WK.pool_reference(torch.from_numpy(f), torch.from_numpy(sp), THR,
+                             4).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(got[0], [100.0, 105.0, 0.0, 0.0])
+    assert got[1, 0] == lim0 and got[2, 0] == lim0
+
+
+def test_pool_max_ranks_fits_a_block():
+    """W1's block stages n_ch x (POOL_TILE + 1) f and sp values: at the
+    limit they fit a block's shared memory, one more rank does not."""
+    n = WK.pool_max_ranks()
+    row = 2 * (WK.POOL_TILE + 1) * 4
+    assert n * row <= SMEM_MAX < (n + 1) * row and n >= 97
+
+
+# ---------------------------------------------------------------------------
+# W3
+# ---------------------------------------------------------------------------
+
+def select_tree(e, c):
+    """csrc fix_select's arg-min: a tree over the CW slots, the upper
+    half's pair taken only where it comes strictly first (replaces: NaN
+    first, ties to the lower index), the candidate c riding along.
+    Returns (e, c) of the winner."""
+    e, c = np.array(e, F32), np.array(c, F32)
+    w = 1
+    while w < len(e):
+        for k in range(0, len(e) - w, 2 * w):
+            if _replaces(e[k + w], e[k]):
+                e[k], c[k] = e[k + w], c[k + w]
+        w *= 2
+    return e[0], c[0]
+
+
+def fix_select_model(prev1, prev2, cv, C, allowed, stats=None):
+    """csrc fix_select on one frame's CW slots cv (the first C real): the
+    extrapolation with the halving as a multiply by 0.5, errors |ref - c|
+    (+inf past C), the tree, the fail test's IEEE division."""
+    CW = len(cv)
+    with np.errstate(all="ignore"):
+        ref = (prev1 * F32(3.0) - prev2) * F32(0.5)
+        e = np.where(np.arange(CW) < C, np.abs(ref - cv), F32(np.inf))
+        e = e.astype(F32)
+        eb, cb = select_tree(e, cv)
+        cr = ref if np.isnan(ref) else max(ref, F32(1e-12))
+        fail = eb / cr >= F32(allowed)
+    if stats is not None:
+        real = e[:C]
+        stats["selects"] += 1
+        stats["nan"] += bool(np.isnan(eb))
+        stats["ties"] += bool(not np.isnan(eb)
+                              and (real == eb).sum() > 1)
+        stats["fails"] += bool(fail)
+    return F32(0.0) if fail else cb
+
+
+def _next(s2, t, end, want):
+    """csrc fix_next: the first frame u in [t, end) with (s2[u] > 0) ==
+    want, or end, 32 frames a ballot."""
+    for t0 in range(t, end, 32):
+        u = np.arange(t0, min(t0 + 32, end))
+        hit = (s2[u] > 0) == want
+        if hit.any():
+            return int(u[np.argmax(hit)])
+    return end
+
+
+def _prev(s2, t, lo, want):
+    """csrc fix_prev: the last frame u in [lo, t] with (s2[u] > 0) ==
+    want, or lo - 1."""
+    for t0 in range(t, lo - 1, -32):
+        u = np.arange(t0, max(t0 - 32, lo - 1), -1)
+        hit = (s2[u] > 0) == want
+        if hit.any():
+            return int(u[np.argmax(hit)])
+    return lo - 1
+
+
+def fix_contour_model(step2, cands_t, allowed, stats=None):
+    """The kernel's W3 in numpy: s3 starts as step2 where inside and 0
+    elsewhere (the value of every frame the carry does not reach); the
+    forward walk selects at a gap frame while the chain is alive and at
+    a section's first frame that a surviving chain reaches, writing s3,
+    and otherwise jumps a section to its next gap or a dead gap to its
+    next section (fix_next), reading (prev1, prev2) back from s3; the
+    backward walk, on the same s3 in place, selects at gap frames while
+    alive and jumps the rest (fix_prev), down to frame 1.  Each select on
+    the CW slots of the frame's row (csrc fix_row: 0 past C).  Returns
+    s3, which the kernel writes to out."""
+    F, C = cands_t.shape
+    CW = WK.fix_contour_slots(C)
+    rows = np.zeros((F, CW), F32)
+    rows[:, :C] = cands_t
+    s2 = step2
+    with np.errstate(invalid="ignore"):
+        s3 = np.where(s2 > 0, s2, F32(0.0)).astype(F32)
+
+    def select(p1, p2, t):
+        return fix_select_model(p1, p2, rows[t], C, allowed, stats)
+
+    prev2 = prev1 = F32(0.0)
+    alive = was_gap = False
+    t = 0
+    while t < F:
+        inside = bool(s2[t] > 0)
+        if (inside and was_gap and alive) or (
+                not inside and alive and bool(prev1 > 0)):
+            v = select(prev1, prev2, t)
+            s3[t] = v
+            alive, was_gap = inside or bool(v > 0), not inside
+            prev2, prev1, t = prev1, v, t + 1
+            continue
+        t = _next(s2, t + 1, F, not inside)
+        alive, was_gap = inside, not inside
+        if t < F:
+            prev1, prev2 = s3[t - 1], s3[t - 2] if t >= 2 else F32(0.0)
+
+    prev2 = prev1 = F32(0.0)
+    alive = False
+    t = F - 1
+    while t >= 1:
+        inside = bool(s2[t] > 0)
+        if not inside and alive and bool(prev1 > 0):
+            v = select(prev1, prev2, t)
+            s3[t] = v
+            alive = bool(v > 0)
+            prev2, prev1, t = prev1, v, t - 1
+            continue
+        t = _prev(s2, t - 1, 1, not inside)
+        alive = inside
+        if t >= 1:
+            prev1 = s3[t + 1]
+            prev2 = s3[t + 2] if t + 2 < F else F32(0.0)
+    return s3
+
+
+SPECIAL_E = [np.nan, np.inf, 0.0, 1.0, 1e30, 0.5, 2.0 ** -149]
+
+
+@settings(max_examples=300, deadline=None)
+@given(C=st.integers(1, 32), data=st.data())
+def test_select_tree_equals_torch_argmin(C, data):
+    """The tree over CW = 8, 16 or 32 slots (+inf past C) picks the pair
+    torch.argmin picks over the C real errors: NaN first, ties to the
+    first index."""
+    vals = data.draw(st.lists(
+        st.one_of(st.sampled_from(SPECIAL_E),
+                  st.floats(0.0, 4.0, width=32)), min_size=C, max_size=C))
+    CW = WK.fix_contour_slots(C)
+    e = np.full(CW, np.inf, F32)
+    e[:C] = vals
+    _, idx = select_tree(e, np.arange(CW, dtype=F32))
+    want = int(torch.argmin(torch.tensor(e[:C])))
+    assert int(idx) == want
+
+
+def test_halving_by_multiply_is_bit_equal():
+    """x / 2 and x * 0.5 are the same exact value, each correctly rounded,
+    so the same bits for every float32 (subnormals, the largest, +-inf;
+    NaN stays NaN): numpy's and PyTorch's float32 division and multiply."""
+    rng = np.random.default_rng(15)
+    x = rng.integers(0, 2 ** 32, 1 << 20, dtype=np.uint64).astype(
+        np.uint32).view(F32)
+    x = np.concatenate([x, np.array([0.0, -0.0, 2.0 ** -149, -(2.0 ** -149),
+                                     2.0 ** -126, 3.0 * 2.0 ** -149,
+                                     np.finfo(F32).max, np.inf, -np.inf,
+                                     np.nan], F32)])
+    with np.errstate(all="ignore"):
+        div, mul = x / F32(2.0), x * F32(0.5)
+    nan = np.isnan(x)
+    np.testing.assert_array_equal(np.isnan(div), nan)
+    np.testing.assert_array_equal(np.isnan(mul), nan)
+    np.testing.assert_array_equal(_bits(div[~nan]), _bits(mul[~nan]))
+    t = torch.from_numpy(x)
+    np.testing.assert_array_equal(_bits((t / 2.0).numpy()[~nan]),
+                                  _bits((t * 0.5).numpy()[~nan]))
+    assert (np.abs(x[~nan]) < 2.0 ** -125).sum() > 1000   # subnormal halves
+
+
+FIX_CASES = [(0, 200, 7, "mixed"), (1, 200, 7, "mixed"), (2, 1, 7, "mixed"),
+             (3, 2, 1, "mixed"), (4, 150, 32, "mixed"),
+             (5, 60, 7, "unvoiced"), (6, 60, 32, "voiced"),
+             (7, 200, 16, "mixed"), (8, 151, 32, "mixed"), (9, 90, 1, "mixed")]
+
+
+@pytest.mark.parametrize("seed,F,C,kind", FIX_CASES)
+def test_fix_contour_model_bit_equal_to_plain(seed, F, C, kind):
+    """On the edge inputs (the walk is the same in shared and in device
+    memory)."""
+    step2, cands = CASES.fix_contour_edge_inputs(seed, F, C, kind)
+    got = fix_contour_model(step2, cands, ALLOWED)
+    want = WK.fix_contour_reference(torch.from_numpy(step2),
+                                    torch.from_numpy(cands), ALLOWED).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_fix_contour_edge_inputs_reach_the_select():
+    """The planted cases reach the walks' selects: exact ties, NaN errors,
+    the 10% edge failing, extensions kept, NaN in step2."""
+    stats = dict.fromkeys(("selects", "nan", "ties", "fails"), 0)
+    for seed in range(4):
+        step2, cands = CASES.fix_contour_edge_inputs(seed, 200, 7)
+        out = fix_contour_model(step2, cands, ALLOWED, stats=stats)
+        assert np.isnan(step2).any()
+        assert ((out > 0) & ~(step2 > 0)).any()    # extended into gaps
+    assert stats["ties"] >= 4 and stats["nan"] >= 1 and stats["fails"] >= 4
+    assert stats["selects"] > 40
+
+
+@pytest.mark.parametrize("seed,F,C", [(20, 7, 7), (21, 8, 7), (22, 9, 1),
+                                      (23, 200, 7), (24, 120, 32),
+                                      (25, 160, 16)])
+def test_fix_contour_model_in_stage_matches_jax(seed, F, C, monkeypatch):
+    """The edge contours as f0 through device_f0's stage (steps 1-2, then
+    W3 as the model) against JAX's _fix_contour_scan at DIO's defaults
+    (5 ms, f0_floor 71 Hz: vrm = 7; F = 7 returns f0 before any walk, F = 8
+    walks); NaN in the last frames reaches step 2."""
+    f0, cands = CASES.fix_contour_edge_inputs(seed, F, C)
+    monkeypatch.setattr(device_f0.world_kernel, "fix_contour",
+                        lambda s2, c, a: torch.from_numpy(fix_contour_model(
+                            s2.numpy(), c.contiguous().numpy(), a)))
+    got = device_f0._fix_contour_scan(torch.from_numpy(f0),
+                                      torch.from_numpy(cands.T.copy()), 5.0,
+                                      ALLOWED, 71.0).numpy()
+    want = np.asarray(jax_f0._fix_contour_scan(
+        jnp.asarray(f0), jnp.asarray(cands.T.copy()), 5.0, ALLOWED, 71.0))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(_bits(np.nan_to_num(got)),
+                                  _bits(np.nan_to_num(want)))
+
+
+@pytest.mark.parametrize("C", [1, 7, 8, 9, 16, 17, 32])
+def test_fix_contour_staged_fits_a_block(C):
+    """The pass is staged while its F (C + 2) floats fit a block's shared
+    memory (6,456 frames, 32 s, at C = 7; 1,709 at C = 32); the 10 s pass
+    is, 15,001 frames are not; the slots hold every candidate."""
+    CW = WK.fix_contour_slots(C)
+    assert C <= CW <= 32 and CW in (8, 16, 32)
+    most = SMEM_MAX // (4 * (C + 2))
+    assert WK.fix_contour_staged(most, C)
+    assert not WK.fix_contour_staged(most + 1, C)
+    if C == 7:
+        assert most == 6456 and WK.fix_contour_staged(2001, C)
+        assert not WK.fix_contour_staged(15001, C)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fix_contour_model_jumps_match_plain_on_dense_gaps(seed):
+    """Sections and gaps of one to three frames (every jump short, chains
+    carried across one-frame sections), at C = 1..32."""
+    rng = np.random.default_rng(seed)
+    F, C = 97, int(rng.integers(1, 33))
+    step2, cands = CASES.fix_contour_edge_inputs(seed, F, C)
+    step2[rng.random(F) < 0.35] = 0.0
+    got = fix_contour_model(step2, cands, ALLOWED)
+    want = WK.fix_contour_reference(torch.from_numpy(step2),
+                                    torch.from_numpy(cands), ALLOWED).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_world_kernel_ab_records_the_pass_inputs():
+    """tools/world_kernel_ab records W1-W3's arguments from a device
+    harvest and a DIO pass at each of PASS_SECONDS (here on the CPU, where
+    the wrappers run the plain versions, at a cut length), contiguous,
+    through world_kernel_cases.recording, which restores the wrappers;
+    without a card it exits 2."""
+    from qpnet_tpu_torch.tools import world_kernel_ab as AB
+    saved = {n: getattr(WK, n) for n in WK.KERNELS}
+    orig = CASES.PASS_SECONDS
+    CASES.PASS_SECONDS = (0.6,)
+    try:
+        got = AB.pass_inputs(torch.device("cpu"))
+    finally:
+        CASES.PASS_SECONDS = orig
+    assert {n: getattr(WK, n) for n in WK.KERNELS} == saved
+    assert sorted(got) == [("fix_contour", 0.6), ("pool", 0.6),
+                           ("viterbi", 0.6)]
+    F = got[("fix_contour", 0.6)][0].shape[0]
+    assert got[("fix_contour", 0.6)][1].shape == (F, 7)
+    assert got[("pool", 0.6)][0].shape[1] == F
+    assert all(t.is_contiguous() for a in got.values() for t in a
+               if torch.is_tensor(t))
+    assert WK.fix_contour_reference(*got[("fix_contour", 0.6)]).shape == (F,)
+    if not torch.cuda.is_available():
+        assert AB.main(["--other", "none.cu"]) == 2
+
+
+def test_entry_points_match_the_source():
+    """world_kernel.ENTRY_POINTS, the one table that types the library's
+    entry points (for the wrappers and for tools/world_kernel_ab), names
+    every `extern "C"` function of csrc/world_kernel.cu with its number of
+    arguments, pointers where the source has pointers."""
+    import ctypes
+    import re
+    from qpnet_tpu_torch.ops import _build
+    src = (_build.CSRC / "world_kernel.cu").read_text()
+    found = {}
+    for name, params in re.findall(
+            r'extern "C" int (qp_world_\w+)\(([^)]*)\)', src):
+        params = [q.strip() for q in params.split(",") if q.strip()]
+        found[name] = ["*" in q for q in params]
+    assert found and set(found) == set(WK.ENTRY_POINTS)
+    for name, ptrs in found.items():
+        assert [t is ctypes.c_void_p for t in WK.ENTRY_POINTS[name]] == ptrs
+
+
+def test_launching_swaps_and_restores_the_library():
+    """world_kernel.launching puts a library under the wrappers for the
+    block only."""
+    before = list(WK._loaded)
+    lib = object()
+    with WK.launching(lib):
+        assert WK._lib() is lib
+    assert WK._loaded == before
