@@ -101,7 +101,16 @@ Phases, each reported on its own line; any failure exits non-zero:
      11,800, four calls each), W3 four times on the input of a DIO F0 pass
      over the 10 s utterance (device_dio alone), timed, and past its
      shared memory (6,500 frames at C = 7, 2,001 at C = 32, walked on
-     device memory), timed;
+     device memory), timed; the wide branches (`wk_wide`: W1 past 16
+     slots, W2 past 16 states, W3 past 32 candidates) four calls each on
+     the CPU tests' wide inputs (K 17-255, S 17-256 with one past the
+     back-pointers' shared memory, C 33-256 staged and on device memory),
+     on the inputs of a device_harvest(max_candidates=31) pass and of
+     device_dio passes at 12 and 73 bands an octave (C = 42, 256) over the
+     3 s utterance, the first two queued and counted, their F0 on the JAX
+     package's gates against the host's harvest and dio + stonemask, and
+     timed beside their plain versions (W1, W2 at K = 31 and 127 on 10 s
+     inputs, W3 at C = 42 and 256 on the 3 s DIO inputs);
      `WorldAnalyzer.extract_all` queued without a sync
      (`torch.cuda.set_sync_debug_mode("error")`), the kernels' launches
      counted over that pass, its F0 held to the host
@@ -1379,8 +1388,9 @@ def replay_logits(params, cfg, xs, h, d):
                        h_up=h_up)[:, rf:rf + n].cpu().numpy()
 
 
-SCAN_CALLS = 3       # timed calls per type and batch (5 until the run's
-                     # time limit grew tight)
+SCAN_CALLS = 2       # timed calls per type and batch (5 until the run's
+                     # time limit grew tight, 3 until phase 15's wide
+                     # branches came; no gate reads them)
 
 
 def scan_smoke(cfg, dev, card, B=8, F=4):
@@ -2113,6 +2123,181 @@ def wk_pool_contour_edges(dev, card, x_long, errs):
     return times["fix_contour"], long_ms
 
 
+# the wide branches of W1-W3 (past 16 slots, 16 states, 32 candidates; the
+# CPU tests' wide inputs, tests/test_torch_port_world_wide.py): (seed,
+# n_ch, F, K, ladder, agreeing +inf) for W1, K = 17, 64 and 255, K past
+# the ranks, a 10 s frame count; (seed, F, K) for W2, S = 17, 33, 129 and
+# 256, the last past the back-pointers' shared memory (the spill branch);
+# (seed, F, C, kind) for W3, C = 33, 64, 100 and 256, 256 both staged (150
+# frames) and on device memory (601)
+WK_POOL_WIDE = [(50, 40, 9, 17, 30, False), (51, 200, 9, 64, 150, True),
+                (52, 600, 5, 255, 500, True), (53, 97, 7, 255, 0, False),
+                (55, 1500, 4, 255, 1200, True), (56, 84, 2001, 31, 84, False)]
+WK_VITERBI_WIDE = [(40, 2001, 16), (41, 601, 32), (42, 601, 128),
+                   (44, 400, 255)]
+WK_FIX_WIDE = [(60, 200, 33, "mixed"), (61, 200, 64, "mixed"),
+               (62, 150, 256, "mixed"), (63, 601, 256, "mixed"),
+               (65, 250, 100, "voiced")]
+WK_WIDE_K = (31, 127)          # W1 and W2 timed at these K, 10 s
+WK_WIDE_OCTAVE = {42: 12.0, 256: 73.0}   # W3 timed at these C (DIO's
+                                         # bands an octave over 71-800 Hz)
+
+
+def wk_wide(dev, card, x, pool_10s, errs):
+    """Phase 15's wide branches: W1, W2 and W3 past their narrow builds,
+    each input WK_EDGE_REPEATS calls bit-equal to its plain version: the
+    CPU tests' wide edge inputs; a device_harvest(max_candidates=31) and a
+    device_dio(channels_in_octave=12) pass over x (3 s; harvest at 40-400
+    Hz as the analysis, DIO at its 71-800 Hz, C = 42) queued and counted,
+    their F0 held to the host's harvest and dio + stonemask on the JAX
+    package's gates, and their W1-W3 inputs held; W3's input of a DIO pass
+    at 73 bands an octave (C = 256, on device memory).  Times W1 and W2 at
+    K = 31 and 127 on 10 s inputs (W1: the 10 s pass's ranks, pool_10s;
+    W2: harvest-like candidates, 2,001 frames) and W3 at C = 42 and 256 on
+    the 3 s DIO inputs, each beside its plain version and bound.  Returns
+    ({kernel: {"ms_by_input", "plain_ms_by_input"}}, the passes' W1-W4
+    launches by path)."""
+    import torch
+    from qpnet_tpu_torch.dsp.world import device_f0 as DF
+    from qpnet_tpu_torch.dsp.world.dio import dio
+    from qpnet_tpu_torch.dsp.world.harvest import harvest
+    from qpnet_tpu_torch.dsp.world.stonemask import stonemask
+    from qpnet_tpu_torch.ops import world_kernel as WK
+    from qpnet_tpu_torch.ops import world_kernel_cases as CASES
+    t0 = time.perf_counter()
+    held = {"pool": 0, "viterbi": 0, "fix_contour": 0}
+
+    def hold(name, args, what):
+        errs[name] = max(errs.get(name, 0.0),
+                         wk_hold_repeats(name, args, what))
+        held[name] += 1
+
+    for seed, n_ch, F, K, ladder, inf in WK_POOL_WIDE:
+        f, sp = (torch.from_numpy(a).to(dev) for a in CASES.pool_edge_inputs(
+            seed, n_ch, F, agreeing_inf=inf, ladder=ladder))
+        hold("pool", (f, sp, CASES.AGREEMENT_THRESHOLD, K),
+             f"wide input {(seed, n_ch, F, K)}")
+    spills = []
+    for seed, F, K in WK_VITERBI_WIDE:
+        arrs = CASES.viterbi_edge_inputs(seed, F, K)
+        spills.append(WK.viterbi_spills(F, K))
+        hold("viterbi", tuple(torch.from_numpy(a).to(dev) for a in arrs)
+             + (CASES.TRANSITION_COST, CASES.UNVOICED_COST),
+             f"wide input {(seed, F, K + 1)} (F, S)")
+    check(spills == [False] * (len(WK_VITERBI_WIDE) - 1) + [True],
+          f"W2's wide inputs: spills {spills}")
+    staged = []
+    for seed, F, C, kind in WK_FIX_WIDE:
+        s2, c = (torch.from_numpy(a).to(dev) for a in
+                 CASES.fix_contour_edge_inputs(seed, F, C, kind))
+        staged.append(WK.fix_contour_staged(F, C))
+        hold("fix_contour", (s2, c, CASES.ALLOWED_RANGE),
+             f"wide input {(seed, F, C, kind)}")
+    dims = [(F, C) for _, F, C, _ in WK_FIX_WIDE]
+    for C in (33, 64, 256):
+        most = WK.SMEM_MAX // (4 * (C + 2))
+        dims += [(most, C), (most + 1, C)]
+    built = [(WK.fix_contour_staged(*d), WK.fix_staged_built(*d))
+             for d in dims]
+    check(staged[2:4] == [True, False] and all(a == b for a, b in built),
+          f"W3's wide staging (Python, built) at {dims}: {built}")
+    phase("analysis", f"wide branches on the CPU tests' wide inputs, "
+                      f"{WK_EDGE_REPEATS} calls each bit-equal to the plain "
+                      f"versions: W1 on {len(WK_POOL_WIDE)} (K 17-255, 4-1500 "
+                      f"ranks), W2 on {len(WK_VITERBI_WIDE)} (S 17-256, the "
+                      f"last spilled), W3 on {len(WK_FIX_WIDE)} (C 33-256, "
+                      f"staged and on device memory)")
+
+    # the passes at K = 31 and C = 42, queued, counted, held to the host
+    # (the signal uploaded first: an upload from pageable memory syncs)
+    secs = len(x) / FS
+    xd = torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    paths, w3_in = {}, {}
+    runs = {
+        "harvest_k31": lambda: DF.device_harvest(
+            xd, FS, n_valid=len(x), f0_floor=40.0, f0_ceil=400.0,
+            max_candidates=31),
+        "dio_c42": lambda: DF.device_dio(
+            xd, FS, n_valid=len(x), channels_in_octave=WK_WIDE_OCTAVE[42]),
+        "dio_c256": lambda: DF.device_dio(
+            xd, FS, n_valid=len(x), channels_in_octave=WK_WIDE_OCTAVE[256])}
+    for tag, run in runs.items():
+        with CASES.recording() as calls:
+            run()
+        for name, args in calls:
+            hold(name, args, f"the {secs:g} s {tag} pass's input")
+            if name == "fix_contour":
+                w3_in[args[1].shape[1]] = args
+        WK.reset_launch_count()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            f0 = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        paths[f"{tag}_{secs:g}s"] = wk_counts()
+        if tag == "harvest_k31":
+            f0_h, _ = harvest(x, FS, f0_floor=40.0, f0_ceil=400.0,
+                              max_candidates=31)
+        elif tag == "dio_c42":
+            raw, ta = dio(x, FS, channels_in_octave=WK_WIDE_OCTAVE[42])
+            f0_h = stonemask(x, raw, ta, FS)
+            f0 = DF.device_stonemask(xd, f0, FS, n_valid=len(x))
+        else:
+            continue
+        phase("analysis", f"{tag} ({secs:g} s): W1-W4 launches "
+                          f"{paths[f'{tag}_{secs:g}s']}; device F0 against "
+                          f"the host's: " + f0_gates(
+                              f0.cpu().numpy()[:len(f0_h)], f0_h, tag))
+    want = {"harvest_k31": {"pool": 1, "viterbi": 1, "fix_contour": 0,
+                            "smooth": 0},
+            "dio_c42": {"pool": 0, "viterbi": 0, "fix_contour": 1,
+                        "smooth": 0}}
+    for tag, counts in want.items():
+        check(paths[f"{tag}_{secs:g}s"] == counts,
+              f"{tag}: W1-W4 launches {paths[f'{tag}_{secs:g}s']}")
+    check(sorted(w3_in) == [42, 256], f"W3's pass inputs: C {sorted(w3_in)}")
+
+    # the times: each new branch beside its plain version (one call after
+    # a warm-up: no gate reads it) and bound; W1's and W2's 10 s inputs
+    # held first, W3's were in their pass
+    inputs = {}
+    f, sp, thr, _ = pool_10s
+    for K in WK_WIDE_K:
+        inputs[("pool", f"harvest_10s_K{K}")] = (f, sp, thr, K)
+        refined, score = CASES.harvest_like_inputs(K, f.shape[1], K)
+        with CASES.recording() as calls:
+            DF._viterbi(torch.from_numpy(refined).to(dev),
+                        torch.from_numpy(score).to(dev),
+                        CASES.TRANSITION_COST, CASES.UNVOICED_COST)
+        inputs[("viterbi", f"harvest_like_10s_K{K}")] = calls[0][1]
+    for (name, tag), args in inputs.items():
+        hold(name, args, f"the {tag} input")
+    for C, args in sorted(w3_in.items()):
+        inputs[("fix_contour", f"dio_{secs:g}s_C{C}")] = args
+    out = {n: {"ms_by_input": {}, "plain_ms_by_input": {},
+               "bound_ms_by_input": {}} for n in held}
+    line = []
+    for (name, tag), args in inputs.items():
+        kernel = getattr(WK, name)
+        ms = CASES.device_ms(lambda: kernel(*args))
+        plain = median_ms(lambda: getattr(WK, name + "_reference")(*args),
+                          calls=1)[0]
+        b, o = wk_work(name, args)
+        bound = max(b / HBM_BYTES_S, o / WK_OPS_S) * 1e3
+        out[name]["ms_by_input"][tag] = ms
+        out[name]["plain_ms_by_input"][tag] = plain
+        out[name]["bound_ms_by_input"][tag] = bound
+        shape = tuple(args[1].shape if name == "fix_contour"
+                      else args[0].shape)
+        line.append(f"{WK_ROWS[name][0]} {tag} {shape} device {ms:.4f} "
+                    f"(plain {plain:.3f}; bound {bound:.5f})")
+    phase("time", "wide branches, ms a call: " + "; ".join(line)
+                  + f" | {card}")
+    phase("analysis", f"wide-branch checks: {held} inputs held, took "
+                      f"{time.perf_counter() - t0:.1f} s")
+    return out, paths
+
+
 def analysis_smoke(dev, card):
     """Phase 15: WorldAnalyzer's fused device pass (extract_all, harvest)
     on synthetic 3 s and 10 s utterances at the port's AcousticConfig,
@@ -2165,6 +2350,7 @@ def analysis_smoke(dev, card):
         out, counts, calls = wk_pass(dv, x, dim, alpha, f"{tag} (harvest)",
                                      WK_HARVEST, errs)
         paths[f"analysis_{secs:g}s"] = counts
+        pool_args = next(a for n, a in calls if n == "pool")
         F = len(f0_h)
         check(out["f0"].shape == (F,) and out["mcep"].shape == (F, dim + 1)
               and out["codeap"].shape == (F, 2) and out["npow"].shape == (F,)
@@ -2274,6 +2460,9 @@ def analysis_smoke(dev, card):
     spill_ms = wk_edges(errs, card)
     w3_long, w3_longest = wk_pool_contour_edges(dev, card,
                                                 utts[PASS_SECONDS[-1]], errs)
+    wide, wide_paths = wk_wide(dev, card, utts[PASS_SECONDS[0]], pool_args,
+                               errs)
+    paths.update(wide_paths)
     dio_path = f"analysis_dio_{PASS_SECONDS[0]:g}s"
     dio = dio_leg(dev, card, utts[PASS_SECONDS[0]], kw, dim, alpha, errs)
     paths[dio_path] = dio["counts"]
@@ -2354,6 +2543,10 @@ def analysis_smoke(dev, card):
     rows["fix_contour"]["ms_by_input"] = {
         f"dio_{PASS_SECONDS[-1]:g}s": w3_long["ms"],
         **{f"{F}x{C}": ms for (F, C), ms in w3_longest.items()}}
+    # the wide branches' times, beside their plain versions and bounds
+    for name, r in wide.items():
+        for key, by in r.items():
+            rows[name].setdefault(key, {}).update(by)
     phase("analysis", f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return launches, rows
 

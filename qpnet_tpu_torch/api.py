@@ -15,8 +15,8 @@ dilation factors from the optionally F0-scaled track, mu-law-zero seed and
 again.  Everything runs on `device` (CUDA by default; "cpu" runs the
 kernel's plain twin and the device analysis on the CPU).  `engine` and
 `quantize` take what `batch_fast_generate` takes: the scan engine ("xla",
-"int8_weights") serves `synthesize`; `stream` runs the kernel, so it
-refuses "int8_weights".
+"int8_weights") serves `synthesize`; `stream` runs the kernel, which
+streams "int8_weights" with bf16 weights, as the JAX package does.
 """
 
 from __future__ import annotations

@@ -44,6 +44,14 @@
 //     new slot only, since dup only grows as slots fill (but for +inf,
 //     after which every other slot is NaN).  At most K + ceil(n_ch / 32)
 //     rounds a frame, where the serial walk takes n_ch steps.
+//     K > POOL_REGS = 16 (up to MAX_POOL = 255, harvest's limit: its S = K
+//     + 1 states keep uint8 back-pointers): the slots leave the registers
+//     for shared memory, K floats a warp past the tile (8 K floats a block,
+//     which ops/world_kernel.py pool_max_ranks counts).  Lane l writes
+//     slots l, l + 32, .. in a round, every lane reads each slot (a
+//     broadcast, no bank conflict), __syncwarp between; the dup tests run
+//     against all K slots as above, the empty ones included.  Harvest's K =
+//     6 keeps the register build, whose slots need no shared round trip.
 //   W4: bytes and operations about even (F * (W + 4 kmax) + F * W floats,
 //     17-21 MB, and 2 * F * W * 2 kmax multiplies and adds a D4C call at
 //     10 s).  Register-blocked: a thread's item is SMOOTH_R = 4
@@ -99,6 +107,24 @@
 //       thread 0 chains the G maps from the last frame's argmin, and
 //       thread g walks segment g once more from its known end state,
 //       writing f0: about 2 (F - 1) / G + G dependent loads instead of F.
+//     W2 past VIT_NARROW = 16 states (viterbi_wide_kernel, S up to
+//       MAX_STATES = 256), a block of 8 warps.  A staged (S, S) ring no
+//       longer fits (16 KB a frame at S = 64), so each thread computes its
+//       transitions itself with the plain version's expression (3 rounded
+//       operations) from logf rows that all threads stage with cp.async,
+//       VITW_CH = 16 frames a chunk in two buffers (the next chunk copied
+//       while this one runs, waited for at its last frame).  P lanes a
+//       state, the largest power of two <= 32 with S * P <= 256 (8 at S <=
+//       32, 1 past 128): lane q walks its predecessors q * NP .. q * NP +
+//       NP - 1 in index order (replaces()), then the butterfly over the P
+//       lanes as above.  The previous frame's costs come from shared
+//       memory, double-buffered, one block barrier a frame.  The work is
+//       S^2 transitions a frame, about 10 instructions each, so S = 256
+//       takes about 5,000 cycles a frame on the SM's 4 schedulers; the
+//       back-track is the one above with G = 256 / S >= 1 segments (128 /
+//       S would be 0 past 128); back-pointers spill past VIT_BACK_SMEM as
+//       above.  Harvest's S = 7 keeps the one-warp build, whose chain runs
+//       on shuffles with no barrier a frame.
 //     W3 (fix_contour_kernel), a block of 8 warps.  A frame's value
 //       depends on the carried (prev2, prev1, alive, was_gap) only where it
 //       selects: a gap frame while the extension chain is alive, and a
@@ -122,6 +148,16 @@
 //       backward reads and overwrites it in place, and the block writes out
 //       once, coalesced, at the end.  At 3 s a pass selects at a few dozen
 //       of its 1,201 walk steps.
+//     W3 past FIX_NARROW = 32 candidates (C up to MAX_CANDS = 256): the
+//       same walks, but lane l holds the contiguous block of m = ceil(C /
+//       32) candidates l * m .. l * m + m - 1 (FIX_LANE_SLOTS = 8 register
+//       slots, past C +inf), so a lower lane holds wholly lower indices;
+//       each lane takes its nearest as the tree above, and a butterfly of
+//       __shfl_xor_sync with the candidate riding along picks the warp's,
+//       a tie to the lower block (W2's rule), then the IEEE division.
+//       Staged while F (C + 2) floats fit (225 frames at C = 256), else on
+//       device memory, as above.  DIO's C = 7 keeps the 8-slot build: the
+//       butterfly's 5 shuffle rounds would lengthen every select.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,9 +167,13 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_POOL = 16;     // ops/world_kernel.py MAX_POOL
-constexpr int MAX_STATES = 16;   // MAX_STATES
-constexpr int MAX_CANDS = 32;    // MAX_CANDS
+constexpr int MAX_POOL = 255;    // ops/world_kernel.py MAX_POOL
+constexpr int MAX_STATES = 256;  // MAX_STATES (uint8 back-pointers)
+constexpr int MAX_CANDS = 256;   // MAX_CANDS
+constexpr int POOL_REGS = 16;    // W1: K up to this: slots in registers
+constexpr int VIT_NARROW = 16;   // W2: S up to this: one chain warp
+constexpr int FIX_NARROW = 32;   // W3: C up to this: 8, 16 or 32 slots
+constexpr int FIX_LANE_SLOTS = 8;  // W3 past it: ceil(C / 32) <= 8 a lane
 constexpr int POOL_TILE = 8;     // W1: frames a block, a warp each
 constexpr int POOL_THREADS = 32 * POOL_TILE;
 constexpr int FIX_THREADS = 256;  // W3: all stage, warp 0 walks
@@ -141,6 +181,8 @@ constexpr int VIT_THREADS = 128;               // W2: warp 0 the chain,
 constexpr int VIT_PRODUCERS = VIT_THREADS - 32;  // warps 1-3 the producers
 constexpr int VIT_CH = 32;       // W2: frames a ring stage holds
 constexpr int VIT_STAGES = 4;    // W2: ring stages
+constexpr int VITW_THREADS = 256;  // W2 past VIT_NARROW: states over 8 warps
+constexpr int VITW_CH = 16;        // W2 past VIT_NARROW: frames a staged chunk
 constexpr int VIT_BACK_SMEM = 81920;  // ops/world_kernel.py VITERBI_BACK_SMEM
 constexpr int SMOOTH_THREADS = 256;   // ops/world_kernel.py SMOOTH_THREADS
 constexpr int SMOOTH_R = 4;           // SMOOTH_R: bins an item
@@ -148,11 +190,12 @@ constexpr int SMEM_MAX = 232448;      // shared memory a block may use
 
 // Host state kept per device, so that a launch makes no driver query:
 // whether each kernel's shared-memory limit is raised (slot 0 W4, 1 W1,
-// 2 log2(P) + SPILL W2's instantiations, 12-14 W3's, 15 the empty launch)
-// and the SM count (W4's items).
+// 2 log2(P) + SPILL W2's instantiations, 12-14 W3's, 15 the empty launch,
+// 16 W1's wide build, 17 + SPILL W2's, 19 W3's) and the SM count (W4's
+// items).
 // Two threads may both set an entry; the calls are idempotent.
 constexpr int MAX_DEVICES = 64;
-constexpr int SMEM_SLOTS = 16;
+constexpr int SMEM_SLOTS = 20;
 std::atomic<bool> g_smem_raised[SMEM_SLOTS][MAX_DEVICES];
 std::atomic<int> g_sms[MAX_DEVICES];
 
@@ -248,11 +291,14 @@ __device__ __forceinline__ bool pool_dup(float f, float p) {
 
 // the dynamic shared memory of W1's block: f and sp of n_ch ranks x
 // POOL_TILE frames, each rank's row POOL_TILE + 1 floats (no bank conflict
-// when lane r reads rank r0 + r)
-__host__ __device__ constexpr size_t pool_smem(int n_ch) {
-  return 2 * (size_t)n_ch * (POOL_TILE + 1) * sizeof(float);
+// when lane r reads rank r0 + r), and past POOL_REGS each warp's K slots
+__host__ __device__ constexpr size_t pool_smem(int n_ch, int K) {
+  return (2 * (size_t)n_ch * (POOL_TILE + 1)
+          + (K > POOL_REGS ? (size_t)POOL_TILE * K : 0)) * sizeof(float);
 }
 
+// WIDE (K > POOL_REGS): the same rounds with the K slots in shared memory
+template <bool WIDE>
 __global__ void __launch_bounds__(POOL_THREADS)
 pool_kernel(const float* __restrict__ f_sorted,
             const float* __restrict__ sp_sorted, int n_ch, int F, int K,
@@ -274,11 +320,43 @@ pool_kernel(const float* __restrict__ f_sorted,
   __syncthreads();
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (w >= nt) return;                 // warp-uniform: the tile's last frames
+  if constexpr (WIDE) {
+    // the warp's K slots past the tile, lane l writing slots l, l + 32, ..
+    // and every lane reading each (a broadcast); the rounds as below
+    float* p = s_sp + (size_t)n_ch * (POOL_TILE + 1) + (size_t)w * K;
+    for (int k = lane; k < K; k += 32) p[k] = 0.0f;
+    __syncwarp();
+    int n = 0;
+    for (int r0 = 0; r0 < n_ch && n < K; r0 += 32) {
+      const int r = r0 + lane;
+      const float f = r < n_ch ? s_f[r * (POOL_TILE + 1) + w] : 0.0f;
+      const float sp = r < n_ch ? s_sp[r * (POOL_TILE + 1) + w] : 0.0f;
+      const bool ok = r < n_ch && sp <= thr && f > 0.0f;
+      bool dup = false;
+      for (int k = 0; k < K; ++k) dup = dup | pool_dup(f, p[k]);
+      unsigned m = __ballot_sync(FULL, ok && !dup);
+      while (m != 0u && n < K) {
+        const int src = __ffs(m) - 1;
+        const float fn = __shfl_sync(FULL, f, src);
+        const float z = __fmul_rn(0.0f, fn);
+        __syncwarp();                  // every lane has read the slots
+        for (int k = lane; k < K; k += 32)
+          p[k] = __fadd_rn(p[k], k == n ? fn : z);
+        __syncwarp();
+        const float pn = p[n];
+        ++n;
+        dup = (isinf(fn) ? false : dup) | pool_dup(f, pn);
+        m = __ballot_sync(FULL, ok && !dup && lane > src);
+      }
+    }
+    for (int k = lane; k < K; k += 32) out[(size_t)(t0 + w) * K + k] = p[k];
+    return;
+  }
   // the K slots, the same in every lane; empty ones hold 0, as the plain
   // version's do
-  float p[MAX_POOL];
+  float p[POOL_REGS];
 #pragma unroll
-  for (int k = 0; k < MAX_POOL; ++k) p[k] = 0.0f;
+  for (int k = 0; k < POOL_REGS; ++k) p[k] = 0.0f;
   int n = 0;
   for (int r0 = 0; r0 < n_ch && n < K; r0 += 32) {
     // lane r holds rank r0 + r: its ok, and its dup flag against every
@@ -289,7 +367,7 @@ pool_kernel(const float* __restrict__ f_sorted,
     const bool ok = r < n_ch && sp <= thr && f > 0.0f;   // NaN fails
     bool dup = false;
 #pragma unroll
-    for (int k = 0; k < MAX_POOL; ++k)
+    for (int k = 0; k < POOL_REGS; ++k)
       if (k < K) dup = dup | pool_dup(f, p[k]);
     // rounds: the lowest rank that agrees and is no duplicate is the next
     // one the serial walk keeps
@@ -302,7 +380,7 @@ pool_kernel(const float* __restrict__ f_sorted,
       const float z = __fmul_rn(0.0f, fn);
       float pn = 0.0f;
 #pragma unroll
-      for (int k = 0; k < MAX_POOL; ++k) {
+      for (int k = 0; k < POOL_REGS; ++k) {
         if (k < K) p[k] = __fadd_rn(p[k], k == n ? fn : z);
         pn = k == n ? p[k] : pn;
       }
@@ -318,7 +396,7 @@ pool_kernel(const float* __restrict__ f_sorted,
   if (lane < K) {
     float v = 0.0f;
 #pragma unroll
-    for (int k = 0; k < MAX_POOL; ++k) v = k == lane ? p[k] : v;
+    for (int k = 0; k < POOL_REGS; ++k) v = k == lane ? p[k] : v;
     out[(size_t)(t0 + w) * K + lane] = v;
   }
 }
@@ -335,7 +413,7 @@ __host__ __device__ constexpr int vit_lanes(int S) {
 // predecessor positions a lane holds for every S that P serves:
 // ceil(min(16, 32 / P) / P), so q * NPOS .. q * NPOS + NPOS - 1
 __host__ __device__ constexpr int vit_positions(int P) {
-  return ((32 / P < MAX_STATES ? 32 / P : MAX_STATES) + P - 1) / P;
+  return ((32 / P < VIT_NARROW ? 32 / P : VIT_NARROW) + P - 1) / P;
 }
 
 // byte offsets of W2's dynamic shared memory
@@ -360,6 +438,48 @@ __host__ __device__ constexpr VitLayout vit_layout(int F, int K, bool spill) {
   if (!spill) o += (size_t)(F - 1) * S;
   L.total = o;
   return L;
+}
+
+// W2's back-track by a block of THREADS threads, once the back-pointers bk
+// ((F - 1) x S) and the last frame's state *s_last are visible to it: G =
+// THREADS / S >= 1 segments of seg frames; segment g covers frames (a_g,
+// e_g], a_g = min(g * seg, rows); back row u - 1 maps the state at frame u
+// to the state at frame u - 1
+template <int THREADS>
+__device__ __forceinline__ void vit_backtrack(const uint8_t* bk,
+                                              const float* refined, int F,
+                                              int K, int* s_map, int* s_end,
+                                              const int* s_last, float* f0) {
+  const int S = K + 1, rows = F - 1, tid = threadIdx.x;
+  const int G = THREADS / S;
+  const int seg = (rows + G - 1) / G;
+  // walk 1: thread (g1, s0) maps state s0 at e_g1 to its state at a_g1
+  int x = tid % S;
+  if (tid < G * S) {
+    const int a = min(tid / S * seg, rows), e = min(a + seg, rows);
+    for (int u = e; u > a; --u)
+      x = bk[(size_t)(u - 1) * S + x];
+    s_map[tid] = x;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int y = *s_last;
+    for (int g = G - 1; g >= 0; --g) {
+      s_end[g] = y;
+      y = s_map[g * S + y];
+    }
+  }
+  __syncthreads();
+  // walk 2: thread g < G walks segment g from its end state, writing f0
+  if (tid < G) {
+    const int a = min(tid * seg, rows), e = min(a + seg, rows);
+    x = s_end[tid];
+    for (int u = e; u > a; --u) {
+      f0[u] = x > 0 ? refined[(size_t)u * K + x - 1] : 0.0f;
+      x = bk[(size_t)(u - 1) * S + x];
+    }
+    if (tid == 0) f0[0] = x > 0 ? refined[x - 1] : 0.0f;
+  }
 }
 
 template <int P, bool SPILL>
@@ -510,45 +630,13 @@ viterbi_kernel(const float* __restrict__ emits,
   // the back-pointers, in shared or (spilled) device memory, are visible
   // to the whole block past this barrier
   __syncthreads();
-
-  // the back-track in G segments of seg frames: segment g covers frames
-  // (a_g, e_g], a_g = min(g * seg, rows); back row u - 1 maps the state at
-  // frame u to the state at frame u - 1
-  const int G = VIT_THREADS / S;
-  const int seg = (rows + G - 1) / G;
-  // walk 1: thread (g1, s0) maps state s0 at e_g1 to its state at a_g1
-  int x = tid % S;
-  if (tid < G * S) {
-    const int a = min(tid / S * seg, rows), e = min(a + seg, rows);
-    for (int u = e; u > a; --u)
-      x = bk[(size_t)(u - 1) * S + x];
-    s_map[tid] = x;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int y = *s_last;
-    for (int g = G - 1; g >= 0; --g) {
-      s_end[g] = y;
-      y = s_map[g * S + y];
-    }
-  }
-  __syncthreads();
-  // walk 2: thread g < G walks segment g from its end state, writing f0
-  if (tid < G) {
-    const int a = min(tid * seg, rows), e = min(a + seg, rows);
-    x = s_end[tid];
-    for (int u = e; u > a; --u) {
-      f0[u] = x > 0 ? refined[(size_t)u * K + x - 1] : 0.0f;
-      x = bk[(size_t)(u - 1) * S + x];
-    }
-    if (tid == 0) f0[0] = x > 0 ? refined[x - 1] : 0.0f;
-  }
+  vit_backtrack<VIT_THREADS>(bk, refined, F, K, s_map, s_end, s_last, f0);
 }
 
 // the most shared memory viterbi_kernel<P, spill> asks for: the ring at
 // the most states P serves, and the back-pointers' capacity unless they spill
 constexpr size_t vit_smem_max(int P, bool spill) {
-  return vit_layout(1, (32 / P < MAX_STATES ? 32 / P : MAX_STATES) - 1,
+  return vit_layout(1, (32 / P < VIT_NARROW ? 32 / P : VIT_NARROW) - 1,
                     true).total
          + (spill ? 0 : VIT_BACK_SMEM);
 }
@@ -576,19 +664,200 @@ int launch_viterbi(const float* emits, const float* logf,
   return (int)cudaGetLastError();
 }
 
+// W2 past VIT_NARROW states (see the note at the top): lanes a state, the
+// largest power of two P <= 32 with S * P <= VITW_THREADS
+__host__ __device__ constexpr int vitw_lanes(int S) {
+  return S <= 8 ? 32 : S <= 16 ? 16 : S <= 32 ? 8 : S <= 64 ? 4
+         : S <= 128 ? 2 : 1;
+}
+
+// byte offsets of the wide W2's dynamic shared memory
+struct VitWideLayout {
+  size_t cost, em, lf, back, total;
+};
+
+constexpr size_t VITW_HEAD = (2 * VITW_THREADS + 4) * sizeof(int);
+
+__host__ __device__ constexpr VitWideLayout vitw_layout(int F, int K,
+                                                        bool spill) {
+  const int S = K + 1;
+  VitWideLayout L{};
+  size_t o = VITW_HEAD;
+  L.cost = o;    // running costs, double-buffered: [frame & 1][state]
+  o += 2 * (size_t)S * sizeof(float);
+  L.em = o;      // emission rows: [chunk & 1][frame][state]
+  o += 2 * (size_t)VITW_CH * S * sizeof(float);
+  L.lf = o;      // logf rows t0 - 1 .. t0 + VITW_CH - 1: [chunk & 1][row][k]
+  o += 2 * (size_t)(VITW_CH + 1) * K * sizeof(float);
+  L.back = o;    // back-pointers [frame][state], unless they spill
+  if (!spill) o += (size_t)(F - 1) * S;
+  L.total = o;
+  return L;
+}
+
+// chunk c's emission rows t0 .. t0 + n - 1 and logf rows t0 - 1 .. t0 + n
+// - 1 into buffer c & 1, by every thread of the block with cp.async
+__device__ __forceinline__ void vitw_stage(const float* emits,
+                                           const float* logf, float* s_em,
+                                           float* s_lf, int F, int K, int c) {
+  const int S = K + 1, t0 = 1 + c * VITW_CH, n = min(VITW_CH, F - t0);
+  float* em = s_em + (c & 1) * VITW_CH * S;
+  float* lf = s_lf + (c & 1) * (VITW_CH + 1) * K;
+  for (int i = threadIdx.x; i < n * S; i += VITW_THREADS)
+    cp_async4(em + i, emits + (size_t)t0 * S + i);
+  for (int i = threadIdx.x; i < (n + 1) * K; i += VITW_THREADS)
+    cp_async4(lf + i, logf + (size_t)(t0 - 1) * K + i);
+}
+
+template <bool SPILL>
+__global__ void __launch_bounds__(VITW_THREADS)
+viterbi_wide_kernel(const float* __restrict__ emits,
+                    const float* __restrict__ logf,
+                    const float* __restrict__ refined, int F, int K,
+                    float tc, float uc, uint8_t* back,
+                    float* __restrict__ f0) {
+  const int S = K + 1, P = vitw_lanes(S), NP = (S + P - 1) / P;
+  const VitWideLayout L = vitw_layout(F, K, SPILL);
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_map = reinterpret_cast<int*>(smem);            // [g][s]
+  int* s_end = s_map + VITW_THREADS;                    // [g]
+  int* s_last = s_end + VITW_THREADS;
+  float* s_cost = reinterpret_cast<float*>(smem + L.cost);
+  float* s_em = reinterpret_cast<float*>(smem + L.em);
+  float* s_lf = reinterpret_cast<float*>(smem + L.lf);
+  uint8_t* bk = SPILL ? back : smem + L.back;
+  const float INF = __int_as_float(0x7f800000);
+
+  // thread (s, q): lane q of state s's P lanes (one warp), holding the
+  // predecessors p0 .. p1 - 1, so a lower lane holds lower indices
+  const int tid = threadIdx.x, s = tid / P, q = tid % P;
+  const bool live = s < S;
+  const int p0 = q * NP, p1 = min(p0 + NP, S);
+  const int rows = F - 1, n_chunks = (rows + VITW_CH - 1) / VITW_CH;
+  for (int i = tid; i < S; i += VITW_THREADS) s_cost[i] = emits[i];
+  if (n_chunks > 0) vitw_stage(emits, logf, s_em, s_lf, F, K, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int c = 0; c < n_chunks; ++c) {
+    // the next chunk into the other buffer, which every thread left at the
+    // last frame's barrier; waited for at this chunk's last frame
+    if (c + 1 < n_chunks) vitw_stage(emits, logf, s_em, s_lf, F, K, c + 1);
+    const int t0 = 1 + c * VITW_CH, n = min(VITW_CH, F - t0);
+    const float* em = s_em + (c & 1) * VITW_CH * S;
+    const float* lf = s_lf + (c & 1) * (VITW_CH + 1) * K;
+    for (int f = 0; f < n; ++f) {
+      const int t = t0 + f;
+      const float* prev = s_cost + ((t - 1) & 1) * S;
+      const float* lfp = lf + f * K;                     // logf_{t-1}
+      const float lfs = live && s > 0 ? lf[(f + 1) * K + s - 1] : 0.0f;
+      const float e = live ? em[f * S + s] : 0.0f;
+      // the lane's first-index min over its predecessors in order: 0 from
+      // the unvoiced state to itself, uc to or from it, else tc *
+      // |logf_t[s-1] - logf_{t-1}[p-1]| (the plain version's order)
+      float best = INF;
+      int bi = p0, p = p0;
+      if (p == 0 && p < p1) {
+        best = __fadd_rn(prev[0], s == 0 ? 0.0f : uc);  // INF's bits if +inf
+        p = 1;
+      }
+      for (; p < p1; ++p) {
+        const float tr =
+            s == 0 ? uc : __fmul_rn(tc, fabsf(__fsub_rn(lfs, lfp[p - 1])));
+        const float v = __fadd_rn(prev[p], tr);
+        const bool take = replaces(v, best);
+        best = take ? v : best;
+        bi = take ? p : bi;
+      }
+      // the state's min: a butterfly over its P lanes, as the narrow chain's
+      for (int off = 1; off < P; off <<= 1) {
+        const float bo = __shfl_xor_sync(FULL, best, off);
+        const int io = __shfl_xor_sync(FULL, bi, off);
+        const bool take = (q & off) ? !replaces(best, bo)
+                                    : replaces(bo, best);
+        best = take ? bo : best;
+        bi = take ? io : bi;
+      }
+      if (live && q == 0) {
+        s_cost[(t & 1) * S + s] = __fadd_rn(best, e);
+        bk[(size_t)(t - 1) * S + s] = (uint8_t)bi;
+      }
+      if (f == n - 1) cp_async_wait_all();
+      __syncthreads();
+    }
+  }
+  // the last frame's state: first-index argmin of the S costs
+  if (tid == 0) {
+    const float* cost = s_cost + (rows & 1) * S;
+    float b = cost[0];
+    int bs = 0;
+    for (int s2 = 1; s2 < S; ++s2) {
+      if (replaces(cost[s2], b)) {
+        b = cost[s2];
+        bs = s2;
+      }
+    }
+    *s_last = bs;
+  }
+  __syncthreads();
+  vit_backtrack<VITW_THREADS>(bk, refined, F, K, s_map, s_end, s_last, f0);
+}
+
+// the most shared memory viterbi_wide_kernel<spill> asks for
+constexpr size_t vitw_smem_max(bool spill) {
+  return vitw_layout(1, MAX_STATES - 1, true).total
+         + (spill ? 0 : VIT_BACK_SMEM);
+}
+
+int launch_viterbi_wide(const float* emits, const float* logf,
+                        const float* refined, int F, int K, float tc,
+                        float uc, uint8_t* back, float* f0, bool spill,
+                        cudaStream_t stream) {
+  static_assert(vitw_smem_max(false) <= SMEM_MAX, "W2's wide layout");
+  const size_t smem = vitw_layout(F, K, spill).total;
+  if (smem > vitw_smem_max(spill)) return (int)cudaErrorInvalidValue;
+  const void* fn = spill ? (const void*)viterbi_wide_kernel<true>
+                         : (const void*)viterbi_wide_kernel<false>;
+  const cudaError_t err = raise_smem_once(fn, 17 + (spill ? 1 : 0),
+                                          (int)vitw_smem_max(spill));
+  if (err != cudaSuccess) return (int)err;
+  if (spill)
+    viterbi_wide_kernel<true><<<1, VITW_THREADS, smem, stream>>>(
+        emits, logf, refined, F, K, tc, uc, back, f0);
+  else
+    viterbi_wide_kernel<false><<<1, VITW_THREADS, smem, stream>>>(
+        emits, logf, refined, F, K, tc, uc, back, f0);
+  return (int)cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // W3: DIO's contour walks, staged in shared memory, one chain thread (see
 // the note at the top)
 // ---------------------------------------------------------------------------
 
-// dio._select_best_f0 on the frame's candidates cv (CW slots, the first C
-// real): the candidate nearest (3 prev1 - prev2) / 2, or 0 when even it is
-// off by allowed or more (relative).  The arg-min is a tree of selects over
-// the slots in registers: a block's lower half holds the lower indices, so
-// the upper half's pair is taken only where it comes strictly first
-// (replaces(): NaN first, ties to the lower index) and the candidate rides
-// along.  Slots past C hold +inf, which never comes first.
-template <int CW>
+// the real slots of a lane: the first C of CW (narrow), or past FIX_NARROW
+// (WIDE) the lane's block of m = ceil(C / 32) candidates from lane * m, so
+// a lower lane holds wholly lower indices (none past the last block)
+template <bool WIDE>
+__device__ __forceinline__ int fix_first(int C) {
+  return WIDE ? (int)(threadIdx.x & 31) * ((C + 31) / 32) : 0;
+}
+
+template <bool WIDE>
+__device__ __forceinline__ int fix_real(int C) {
+  return WIDE ? min((C + 31) / 32, C - fix_first<true>(C)) : C;
+}
+
+// dio._select_best_f0 on the frame's candidates cv (CW slots, the first
+// fix_real real): the candidate nearest (3 prev1 - prev2) / 2, or 0 when
+// even it is off by allowed or more (relative).  The arg-min is a tree of
+// selects over the slots in registers: a block's lower half holds the
+// lower indices, so the upper half's pair is taken only where it comes
+// strictly first (replaces(): NaN first, ties to the lower index) and the
+// candidate rides along.  Slots past the real ones hold +inf, which never
+// comes first.  WIDE: then a butterfly of __shfl_xor_sync over the lanes'
+// winners, aligned blocks of lanes growing, the lower block keeping a tie
+// (W2's rule), so every lane ends with the warp's first-index arg-min.
+template <int CW, bool WIDE>
 __device__ __forceinline__ float fix_select(float prev1, float prev2,
                                             const float (&cv)[CW], int C,
                                             float allowed) {
@@ -596,10 +865,11 @@ __device__ __forceinline__ float fix_select(float prev1, float prev2,
   // rounded, so the same bits as the plain version's division by 2
   const float ref =
       __fmul_rn(__fsub_rn(__fmul_rn(prev1, 3.0f), prev2), 0.5f);
+  const int n = fix_real<WIDE>(C);
   float e[CW], c[CW];
 #pragma unroll
   for (int k = 0; k < CW; ++k) {
-    e[k] = k < C ? fabsf(__fsub_rn(ref, cv[k])) : __int_as_float(0x7f800000);
+    e[k] = k < n ? fabsf(__fsub_rn(ref, cv[k])) : __int_as_float(0x7f800000);
     c[k] = cv[k];
   }
 #pragma unroll
@@ -611,17 +881,30 @@ __device__ __forceinline__ float fix_select(float prev1, float prev2,
       c[k] = take ? c[k + w] : c[k];
     }
   }
+  if constexpr (WIDE) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float eo = __shfl_xor_sync(FULL, e[0], off);
+      const float co = __shfl_xor_sync(FULL, c[0], off);
+      const bool take = (lane & off) ? !replaces(e[0], eo)
+                                     : replaces(eo, e[0]);
+      e[0] = take ? eo : e[0];
+      c[0] = take ? co : c[0];
+    }
+  }
   const bool fail = __fdiv_rn(e[0], clamp_min_nan(ref, 1e-12f)) >= allowed;
   return fail ? 0.0f : c[0];
 }
 
-// a frame's C candidates (row t of a (F, C) array) into the CW slots
-template <int CW>
+// a frame's candidates (row t of a (F, C) array) into the lane's CW slots
+template <int CW, bool WIDE>
 __device__ __forceinline__ void fix_row(float (&c)[CW], const float* cv,
                                         int t, int C) {
-  const float* row = cv + (size_t)t * C;
+  const float* row = cv + (size_t)t * C + fix_first<WIDE>(C);
+  const int n = fix_real<WIDE>(C);
 #pragma unroll
-  for (int k = 0; k < CW; ++k) c[k] = k < C ? row[k] : 0.0f;
+  for (int k = 0; k < CW; ++k) c[k] = k < n ? row[k] : 0.0f;
 }
 
 // the first frame u in [t, end) whose inside flag (s2 > 0) is `want`, or
@@ -661,22 +944,22 @@ __device__ __forceinline__ int fix_prev(const float* s2, int t, int lo,
 // frame is 0 and the next section's first keeps step2.  The warp jumps
 // such runs to their end with fix_next and reads the carry (prev1, prev2)
 // back from s3, where every lane stored each value it selected.
-template <int CW>
+template <int CW, bool WIDE>
 __device__ void fix_forward(const float* cv, const float* s2, float* s3,
                             int F, int C, float allowed) {
   float prev2 = 0.0f, prev1 = 0.0f;
   bool alive = false, was_gap = false;
   int t = 0;
   float s2c = s2[0], cur[CW];
-  fix_row(cur, cv, 0, C);
+  fix_row<CW, WIDE>(cur, cv, 0, C);
   while (t < F) {
     const bool in = s2c > 0.0f;
     if ((in & was_gap & alive) | (!in & alive & (prev1 > 0.0f))) {
       const int tn = min(t + 1, F - 1);
       float nxt[CW];
-      fix_row(nxt, cv, tn, C);
+      fix_row<CW, WIDE>(nxt, cv, tn, C);
       const float s2n = s2[tn];
-      const float v = fix_select(prev1, prev2, cur, C, allowed);
+      const float v = fix_select<CW, WIDE>(prev1, prev2, cur, C, allowed);
       s3[t] = v;
       alive = in | (v > 0.0f);
       was_gap = !in;
@@ -697,7 +980,7 @@ __device__ void fix_forward(const float* cv, const float* s2, float* s3,
       prev1 = s3[t - 1];
       prev2 = t >= 2 ? s3[t - 2] : 0.0f;
       s2c = s2[t];
-      fix_row(cur, cv, t, C);
+      fix_row<CW, WIDE>(cur, cv, t, C);
     }
   }
 }
@@ -706,22 +989,22 @@ __device__ void fix_forward(const float* cv, const float* s2, float* s3,
 // written), s3 read and overwritten in place: a gap frame selects while
 // the chain is alive; a section's frames and a dead gap's keep step 3,
 // jumped with fix_prev.
-template <int CW>
+template <int CW, bool WIDE>
 __device__ void fix_backward(const float* cv, const float* s2, float* s3,
                              int F, int C, float allowed) {
   float prev2 = 0.0f, prev1 = 0.0f;
   bool alive = false;
   int t = F - 1;
   float s2c = s2[t], cur[CW];
-  fix_row(cur, cv, t, C);
+  fix_row<CW, WIDE>(cur, cv, t, C);
   while (t >= 1) {
     const bool in = s2c > 0.0f;
     if (!in & alive & (prev1 > 0.0f)) {
       const int tn = t - 1;
       float nxt[CW];
-      fix_row(nxt, cv, tn, C);
+      fix_row<CW, WIDE>(nxt, cv, tn, C);
       const float s2n = s2[tn];
-      const float v = fix_select(prev1, prev2, cur, C, allowed);
+      const float v = fix_select<CW, WIDE>(prev1, prev2, cur, C, allowed);
       s3[t] = v;
       alive = v > 0.0f;
       prev2 = prev1;
@@ -738,7 +1021,7 @@ __device__ void fix_backward(const float* cv, const float* s2, float* s3,
       prev1 = s3[t + 1];
       prev2 = t + 2 < F ? s3[t + 2] : 0.0f;
       s2c = s2[t];
-      fix_row(cur, cv, t, C);
+      fix_row<CW, WIDE>(cur, cv, t, C);
     }
   }
 }
@@ -748,7 +1031,7 @@ __host__ __device__ constexpr bool fix_staged(int F, int C) {
   return (long long)F * (C + 2) * 4 <= SMEM_MAX;
 }
 
-template <int CW>
+template <int CW, bool WIDE>
 __global__ void __launch_bounds__(FIX_THREADS)
 fix_contour_kernel(const float* __restrict__ step2,
                    const float* __restrict__ cands, int F, int C,
@@ -772,26 +1055,26 @@ fix_contour_kernel(const float* __restrict__ step2,
   cp_async_wait_all();
   __syncthreads();
   if (tid < 32) {
-    fix_forward<CW>(cv, s2, s3, F, C, allowed);
-    fix_backward<CW>(cv, s2, s3, F, C, allowed);
+    fix_forward<CW, WIDE>(cv, s2, s3, F, C, allowed);
+    fix_backward<CW, WIDE>(cv, s2, s3, F, C, allowed);
   }
   __syncthreads();
   if (staged)
     for (int t = tid; t < F; t += FIX_THREADS) out[t] = s3[t];
 }
 
-template <int CW>
+template <int CW, bool WIDE>
 int launch_fix_contour(const float* step2, const float* cands, int F, int C,
                        float allowed, float* out, int slot,
                        cudaStream_t stream) {
   const size_t smem = fix_staged(F, C) ? (size_t)F * (C + 2) * 4 : 0;
   if (smem > 48 * 1024) {
     const cudaError_t err = raise_smem_once(
-        (const void*)fix_contour_kernel<CW>, slot, SMEM_MAX);
+        (const void*)fix_contour_kernel<CW, WIDE>, slot, SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
   }
-  fix_contour_kernel<CW><<<1, FIX_THREADS, smem, stream>>>(step2, cands, F, C,
-                                                          allowed, out);
+  fix_contour_kernel<CW, WIDE><<<1, FIX_THREADS, smem, stream>>>(
+      step2, cands, F, C, allowed, out);
   return (int)cudaGetLastError();
 }
 
@@ -946,17 +1229,24 @@ extern "C" int qp_world_pool(const float* f_sorted, const float* sp_sorted,
                              int n_ch, int F, int K, float thr, float* out,
                              void* stream) {
   if (K < 1 || K > MAX_POOL || n_ch < 1 || F < 1
-      || pool_smem(n_ch) > (size_t)SMEM_MAX)
+      || pool_smem(n_ch, K) > (size_t)SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = pool_smem(n_ch);
+  const size_t smem = pool_smem(n_ch, K);
+  const bool wide = K > POOL_REGS;
   if (smem > 48 * 1024) {
-    const cudaError_t err = raise_smem_once((const void*)pool_kernel, 1,
-                                            SMEM_MAX);
+    const void* fn = wide ? (const void*)pool_kernel<true>
+                          : (const void*)pool_kernel<false>;
+    const cudaError_t err = raise_smem_once(fn, wide ? 16 : 1, SMEM_MAX);
     if (err != cudaSuccess) return (int)err;
   }
-  pool_kernel<<<(F + POOL_TILE - 1) / POOL_TILE, POOL_THREADS, smem,
-                (cudaStream_t)stream>>>(f_sorted, sp_sorted, n_ch, F, K, thr,
-                                        out);
+  const int blocks = (F + POOL_TILE - 1) / POOL_TILE;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (wide)
+    pool_kernel<true><<<blocks, POOL_THREADS, smem, s>>>(
+        f_sorted, sp_sorted, n_ch, F, K, thr, out);
+  else
+    pool_kernel<false><<<blocks, POOL_THREADS, smem, s>>>(
+        f_sorted, sp_sorted, n_ch, F, K, thr, out);
   return (int)cudaGetLastError();
 }
 
@@ -972,6 +1262,9 @@ extern "C" int qp_world_viterbi(const float* emits, const float* logf,
   const bool spill = (size_t)(F - 1) * (K + 1) > (size_t)VIT_BACK_SMEM;
   if (spill && back == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (K + 1 > VIT_NARROW)
+    return launch_viterbi_wide(emits, logf, refined, F, K, tc, uc, back, f0,
+                               spill, s);
   switch (vit_lanes(K + 1)) {
     case 32: return launch_viterbi<32>(emits, logf, refined, F, K, tc, uc,
                                        back, f0, spill, s);
@@ -994,10 +1287,16 @@ extern "C" int qp_world_fix_contour(const float* step2, const float* cands,
   // the fewest slots that hold C: at DIO's C = 7 the 32-slot build alone
   // takes twice the 8-slot one's time (PERF.md section 6)
   if (C <= 8)
-    return launch_fix_contour<8>(step2, cands, F, C, allowed, out, 12, s);
+    return launch_fix_contour<8, false>(step2, cands, F, C, allowed, out, 12,
+                                        s);
   if (C <= 16)
-    return launch_fix_contour<16>(step2, cands, F, C, allowed, out, 13, s);
-  return launch_fix_contour<32>(step2, cands, F, C, allowed, out, 14, s);
+    return launch_fix_contour<16, false>(step2, cands, F, C, allowed, out, 13,
+                                         s);
+  if (C <= FIX_NARROW)
+    return launch_fix_contour<32, false>(step2, cands, F, C, allowed, out, 14,
+                                         s);
+  return launch_fix_contour<FIX_LANE_SLOTS, true>(step2, cands, F, C, allowed,
+                                                  out, 19, s);
 }
 
 // 1 when W3 stages a pass of F frames of C candidates in shared memory,
@@ -1038,9 +1337,9 @@ extern "C" int qp_world_chain_probe(const float* in, int which, int steps,
 // a = F, b = C) grid, block and shared memory
 extern "C" int qp_world_launch_floor(int which, int a, int b, void* stream) {
   if (which < 0 || which > 1 || a < 1 || b < 1
-      || (which == 0 && pool_smem(a) > (size_t)SMEM_MAX))
+      || (which == 0 && pool_smem(a, 1) > (size_t)SMEM_MAX))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = which == 0 ? pool_smem(a)
+  const size_t smem = which == 0 ? pool_smem(a, 1)
                       : fix_staged(a, b) ? (size_t)a * (b + 2) * 4 : 0;
   if (smem > 48 * 1024) {
     const cudaError_t err = raise_smem_once((const void*)launch_floor_kernel,

@@ -368,7 +368,14 @@ def device_harvest(x, fs: int, n_valid=None, f0_floor: float = 71.0,
     x: (n,) waveform, optionally zero-padded to a bucketed length;
     n_valid: true signal length — samples beyond are ignored.
     Returns (F,) f0 where F = n//(fs*frame_period/1000)+1 for the PADDED
-    length; callers slice to the true frame count."""
+    length; callers slice to the true frame count.
+
+    On the card max_candidates runs from 1 to world_kernel.MAX_POOL = 255
+    (W1; the Viterbi's K + 1 states up to MAX_STATES = 256, W2, whose
+    back-pointers are uint8) and the channel ranks, 1 + int(log2(f0_ceil /
+    f0_floor) * channels_in_octave), up to world_kernel.pool_max_ranks(K);
+    past those W1 or W2 raises ValueError naming the limit.  On the CPU
+    the plain versions take any shape."""
     x = as_signal(x, device)
     n_valid = x.shape[0] if n_valid is None else int(n_valid)
     tr, bnd, frame_times, x = _candidate_tracks(
@@ -438,7 +445,12 @@ def device_dio(x, fs: int, n_valid=None, f0_floor: float = 71.0,
 
     Shares the candidate front-end with device_harvest; DIO's selection is
     the per-frame best band (minimal normalized interval spread), then the
-    FixF0Contour loops."""
+    FixF0Contour loops.
+
+    On the card the band count C = 1 + int(log2(f0_ceil / f0_floor) *
+    channels_in_octave) runs from 1 to world_kernel.MAX_CANDS = 256 (W3);
+    past it W3 raises ValueError naming the limit.  On the CPU the plain
+    version takes any C."""
     x = as_signal(x, device)
     tr, bnd, _, _ = _candidate_tracks(
         x, fs, n_valid, f0_floor, f0_ceil, frame_period, channels_in_octave)

@@ -635,14 +635,11 @@ def teacher_forced_logits(params: Params, cfg: ModelConfig,
 
 
 def check_streaming_quantize(quantize: str) -> None:
-    """Streaming runs the generation kernel, which has no weight-only
-    scheme: refuse int8_weights (and anything the kernel does not take)."""
-    if quantize == "int8_weights":
-        raise ValueError(
-            "quantize='int8_weights' cannot stream: streaming runs the "
-            "generation kernel, which has no weight-only int8 scheme (it "
-            "is the scan engine's, batch_fast_generate(engine='xla'))")
-    if quantize not in gen_kernel.QUANTIZE:
+    """Streaming runs the generation kernel: "none", "w8a8", or
+    "int8_weights", which the kernel has no scheme for and streams as
+    "none" (bf16 weights), as the JAX package's pack_weights does for
+    anything but w8a8; refuse anything else."""
+    if quantize not in QUANTIZE:
         raise ValueError(f"unknown quantize {quantize!r}")
 
 
@@ -658,7 +655,11 @@ class StreamingGenerator:
     group's first frame, at the first feed after construction or `reset`.
     The session runs at its own batch B on `device` (CUDA by default; a
     CPU device runs the kernel's plain twin).  The nominal chunk is
-    `min_chunk_samples` rounded up to whole frames.
+    `min_chunk_samples` rounded up to whole frames.  quantize "w8a8" runs
+    the kernel's w8a8 branch; "int8_weights", a scheme of the scan engine
+    only, packs the weights as bf16 and streams through the bf16 branch,
+    as the JAX package's session does (so its audio is the "none"
+    session's).
     """
 
     def __init__(self, params: Params, cfg: ModelConfig, B: int,
@@ -666,6 +667,9 @@ class StreamingGenerator:
                  min_chunk_samples: int = 5500, quantize: str = "none",
                  device="cuda"):
         check_streaming_quantize(quantize)
+        # the kernel's scheme: int8_weights packs bf16, as the JAX
+        # package's pack_weights does for anything but w8a8
+        self._kq = "w8a8" if quantize == "w8a8" else "none"
         if mode not in ("sampling", "argmax"):
             raise ValueError("mode should be sampling or argmax")
         self.device = resolve_device(device)
@@ -675,7 +679,7 @@ class StreamingGenerator:
         self.chunk = -(-min_chunk_samples // up) * up
         self.chunk_frames = self.chunk // up
         self._params = params_to(params, self.device)
-        self._packed = gen_kernel.pack_weights(self._params, cfg, quantize)
+        self._packed = gen_kernel.pack_weights(self._params, cfg, self._kq)
         self._state = None
         self._offset = 0
 
@@ -728,7 +732,7 @@ class StreamingGenerator:
             torch.from_numpy(h_pad).to(self.device, torch.bfloat16),
             torch.from_numpy(d_pad).to(self.device), self.seed, B=B,
             maxd=self.maxd, n_steps=n_steps, mode=self.mode,
-            step_offset=self._offset, quantize=self.quantize)
+            step_offset=self._offset, quantize=self._kq)
         self._state = tuple(state)
         self._offset += n_steps
         return samples[:, 0, :].T.cpu().numpy()

@@ -10,21 +10,30 @@ for each kernel's design and bound):
   W1 `pool`: harvest's candidate pooling over channel ranks
      (qpnet_tpu/dsp/world/jax_f0.py::_pool_candidates, its fori_loop): a
      warp a frame, lanes over ranks, the kept ranks found in ballot rounds;
+     K slots in registers up to POOL_REGS, in shared memory up to MAX_POOL;
   W2 `viterbi`: harvest's contour Viterbi, forward and back-track
-     (jax_f0.py::_viterbi, its two scans): three warps stage the
-     transitions, one runs the chain with shuffles;
+     (jax_f0.py::_viterbi, its two scans): up to VITERBI_NARROW states,
+     three warps stage the transitions and one runs the chain with
+     shuffles; up to MAX_STATES, 8 warps share the states, each lane
+     computing its transitions, a block barrier a frame;
   W3 `fix_contour`: DIO's FixF0Contour steps 3-4, the forward and the
      backward extension loops (jax_f0.py::_fix_contour_scan, its scans):
      the pass staged in shared memory, one warp walking the frames whose
      value the carry decides (the nearest candidate a tree of selects in
-     registers) and jumping the runs it cannot reach 32 frames a ballot;
+     registers, past FIX_NARROW candidates over each lane's block, then a
+     butterfly over the lanes) and jumping the runs it cannot reach 32
+     frames a ballot;
   W4 `smooth`: the fractional-box spectral smoothing over 2*kmax offsets
      (qpnet_tpu/dsp/world/jax_analysis.py::_jax_linear_smoothing),
      SMOOTH_R bins a thread over a window held in registers.
 
 Each wrapper runs its plain version (`*_reference`) on CPU tensors and
 launches its kernel on CUDA tensors; any other device raises ValueError.
-Nothing else selects between the two.  A kernel keeps its plain version's
+Nothing else selects between the two.  On CUDA tensors a shape past a
+kernel's limit (`check_pool`, `check_viterbi`, `check_fix_contour`: K up to
+MAX_POOL = 255 candidates, S = K + 1 up to MAX_STATES = 256 states, C up to
+MAX_CANDS = 256 bands) raises ValueError naming it; the plain versions take
+any shape.  A kernel keeps its plain version's
 order of operations and rounding (IEEE division, no contraction, first
 index on ties), so on the card the two give the same bits.
 """
@@ -38,10 +47,18 @@ import threading
 import torch
 
 KERNELS = ("pool", "viterbi", "fix_contour", "smooth")
-MAX_POOL = 16      # W1: the most candidates a frame keeps (registers)
+MAX_POOL = 255     # W1: the most candidates a frame keeps (harvest's K)
+POOL_REGS = 16     # W1: K up to this keeps its slots in registers, past it
+                   # in shared memory (csrc POOL_REGS)
 POOL_TILE = 8      # W1: frames a block, a warp each
-MAX_STATES = 16    # W2: the most states (P lanes each of one warp)
-MAX_CANDS = 32     # W3: the most band candidates (slots in registers)
+MAX_STATES = 256   # W2: the most states, K + 1 (uint8 back-pointers)
+VITERBI_NARROW = 16  # W2: states up to this run on one chain warp, past it
+                     # over a block of VITERBI_WIDE_THREADS (csrc VIT_NARROW)
+VITERBI_WIDE_THREADS = 256
+VITERBI_WIDE_CH = 16   # W2 past VITERBI_NARROW: frames a staged chunk
+MAX_CANDS = 256    # W3: the most band candidates
+FIX_NARROW = 32    # W3: candidates up to this in 8, 16 or 32 slots, past it
+                   # in blocks of ceil(C / 32) a lane (csrc FIX_NARROW)
 SMEM_MAX = 232448  # shared memory an H100 block may use (csrc SMEM_MAX)
 # W2 keeps its (F - 1, S) uint8 back-pointers in shared memory up to this
 # many bytes; past it they go to device memory (csrc VIT_BACK_SMEM)
@@ -71,13 +88,36 @@ def _counted(name: str) -> None:
 
 
 def viterbi_lanes(S: int) -> int:
-    """W2's lanes a state: the largest power of two P with S * P <= 32
-    (csrc vit_lanes); lane q of a state holds the predecessors q * NPOS ..
-    q * NPOS + NPOS - 1, NPOS = ceil(min(16, 32 / P) / P)."""
+    """W2's lanes a state: up to VITERBI_NARROW states the largest power
+    of two P with S * P <= 32 (csrc vit_lanes; lane q of a state holds the
+    predecessors q * NPOS .. q * NPOS + NPOS - 1, NPOS = ceil(min(16, 32 /
+    P) / P)); past it the largest power of two P <= 32 with S * P <=
+    VITERBI_WIDE_THREADS (csrc vitw_lanes; lane q holds q * NP .. q * NP +
+    NP - 1, NP = ceil(S / P))."""
+    threads = 32 if S <= VITERBI_NARROW else VITERBI_WIDE_THREADS
     P = 32
-    while P > 1 and S * P > 32:
+    while P > 1 and S * P > threads:
         P //= 2
     return P
+
+
+def viterbi_threads(S: int) -> int:
+    """The threads of W2's block, whose back-track runs threads // S >= 1
+    segments: 128 (csrc VIT_THREADS) up to VITERBI_NARROW states, else
+    VITERBI_WIDE_THREADS."""
+    return 128 if S <= VITERBI_NARROW else VITERBI_WIDE_THREADS
+
+
+def viterbi_wide_smem(F: int, K: int) -> int:
+    """Shared bytes of W2's block past VITERBI_NARROW states (csrc
+    vitw_layout): the back-track's maps, the costs double-buffered, two
+    chunks of emission and logf rows, and the back-pointers unless they
+    spill."""
+    S = K + 1
+    head = (2 * VITERBI_WIDE_THREADS + 4) * 4
+    body = (2 * S + 2 * VITERBI_WIDE_CH * S
+            + 2 * (VITERBI_WIDE_CH + 1) * K) * 4
+    return head + body + (0 if viterbi_spills(F, K) else (F - 1) * S)
 
 
 def viterbi_spills(F: int, K: int) -> bool:
@@ -86,16 +126,31 @@ def viterbi_spills(F: int, K: int) -> bool:
     return (F - 1) * (K + 1) > VITERBI_BACK_SMEM
 
 
-def pool_max_ranks() -> int:
-    """The most ranks W1 takes: its block stages n_ch x POOL_TILE f and sp
-    values, each rank's row POOL_TILE + 1 floats (csrc pool_smem)."""
-    return SMEM_MAX // (2 * (POOL_TILE + 1) * 4)
+def pool_smem(n_ch: int, K: int) -> int:
+    """Shared bytes of W1's block (csrc pool_smem): n_ch x POOL_TILE f and
+    sp values, each rank's row POOL_TILE + 1 floats, and past POOL_REGS
+    each of its POOL_TILE warps' K slots."""
+    return (2 * n_ch * (POOL_TILE + 1)
+            + (POOL_TILE * K if K > POOL_REGS else 0)) * 4
+
+
+def pool_max_ranks(K: int = 1) -> int:
+    """The most ranks W1 takes at K candidates: its block's pool_smem fits
+    SMEM_MAX."""
+    return (SMEM_MAX - pool_smem(0, K)) // (2 * (POOL_TILE + 1) * 4)
 
 
 def fix_contour_slots(C: int) -> int:
-    """W3's candidate slots a frame (csrc CW): 8, 16 or 32, the first C
-    real."""
-    return 8 if C <= 8 else 16 if C <= 16 else 32
+    """W3's candidate slots a lane (csrc CW): up to FIX_NARROW candidates
+    8, 16 or 32, the first C real, the same in every lane; past it 8, of
+    which the lane's block of fix_contour_block(C) is real."""
+    return 8 if C <= 8 else 16 if C <= 16 else 32 if C <= FIX_NARROW else 8
+
+
+def fix_contour_block(C: int) -> int:
+    """W3's candidates a lane past FIX_NARROW: lane l holds the contiguous
+    block l * m .. l * m + m - 1, m = ceil(C / 32) (csrc fix_first)."""
+    return -(-C // 32)
 
 
 def fix_contour_staged(F: int, C: int) -> bool:
@@ -339,6 +394,18 @@ def _launch(name: str, fn, dev, *args) -> None:
     _counted(name)
 
 
+def check_pool(f_shape, sp_shape, K: int) -> None:
+    """W1's shapes on the card: f and sp (n_ch, F) alike, K candidates
+    from 1 to MAX_POOL, 1 to pool_max_ranks(K) ranks; raises ValueError
+    naming the limit otherwise."""
+    n_ch, F = tuple(f_shape)
+    if (tuple(sp_shape) != tuple(f_shape) or not 1 <= K <= MAX_POOL
+            or not 1 <= n_ch <= pool_max_ranks(K) or F < 1):
+        raise ValueError(f"pool: shapes {tuple(f_shape)} {tuple(sp_shape)} "
+                         f"(1..{pool_max_ranks(K)} ranks at K={K}), K={K} "
+                         f"(1..MAX_POOL={MAX_POOL})")
+
+
 def pool(f_sorted, sp_sorted, agreement_threshold: float,
          max_candidates: int):
     """W1: see pool_reference.  f_sorted, sp_sorted (n_ch, F) float32."""
@@ -348,16 +415,24 @@ def pool(f_sorted, sp_sorted, agreement_threshold: float,
     f_sorted, sp_sorted = _f32(f_sorted), _f32(sp_sorted)
     n_ch, F = f_sorted.shape
     K = int(max_candidates)
-    if (sp_sorted.shape != f_sorted.shape or not 1 <= K <= MAX_POOL
-            or not 1 <= n_ch <= pool_max_ranks() or F < 1):
-        raise ValueError(f"pool: shapes {tuple(f_sorted.shape)} "
-                         f"{tuple(sp_sorted.shape)} (1..{pool_max_ranks()} "
-                         f"ranks), K={K} (1..{MAX_POOL})")
+    check_pool(f_sorted.shape, sp_sorted.shape, K)
     out = torch.empty((F, K), dtype=torch.float32, device=f_sorted.device)
     _launch("pool", _lib().qp_world_pool, f_sorted.device,
             f_sorted.data_ptr(), sp_sorted.data_ptr(), n_ch, F, K,
             float(agreement_threshold), out.data_ptr())
     return out
+
+
+def check_viterbi(emits_shape, logf_shape, refined_shape) -> None:
+    """W2's shapes on the card: emits (F, K + 1), logf and refined (F, K),
+    F >= 1, S = K + 1 states up to MAX_STATES; raises ValueError naming
+    the limit otherwise."""
+    F, K = tuple(refined_shape)
+    if (tuple(emits_shape) != (F, K + 1) or tuple(logf_shape) != (F, K)
+            or F < 1 or K + 1 > MAX_STATES):
+        raise ValueError(f"viterbi: emits {tuple(emits_shape)}, logf "
+                         f"{tuple(logf_shape)}, refined {tuple(refined_shape)}"
+                         f" (at most MAX_STATES={MAX_STATES} states, K + 1)")
 
 
 def viterbi(emits, logf, refined, transition_cost: float,
@@ -369,11 +444,7 @@ def viterbi(emits, logf, refined, transition_cost: float,
                                  unvoiced_cost)
     emits, logf, refined = _f32(emits), _f32(logf), _f32(refined)
     F, K = refined.shape
-    if (emits.shape != (F, K + 1) or logf.shape != (F, K) or F < 1
-            or K + 1 > MAX_STATES):
-        raise ValueError(f"viterbi: emits {tuple(emits.shape)}, logf "
-                         f"{tuple(logf.shape)}, refined {tuple(refined.shape)}"
-                         f" (at most {MAX_STATES} states)")
+    check_viterbi(emits.shape, logf.shape, refined.shape)
     dev = emits.device
     # back-pointers (F-1, S) uint8 live in the kernel's shared memory unless
     # they spill; then they go here, written forward and read back
@@ -387,6 +458,16 @@ def viterbi(emits, logf, refined, transition_cost: float,
     return f0
 
 
+def check_fix_contour(step2_shape, cands_shape) -> None:
+    """W3's shapes on the card: step2 (F,), cands_t (F, C), F >= 1, C from
+    1 to MAX_CANDS; raises ValueError naming the limit otherwise."""
+    F, C = tuple(cands_shape)
+    if tuple(step2_shape) != (F,) or F < 1 or not 1 <= C <= MAX_CANDS:
+        raise ValueError(f"fix_contour: step2 {tuple(step2_shape)}, cands_t "
+                         f"{tuple(cands_shape)} (1..MAX_CANDS={MAX_CANDS} "
+                         f"candidates)")
+
+
 def fix_contour(step2, cands_t, allowed_range: float):
     """W3: see fix_contour_reference.  step2 (F,), cands_t (F, C)
     float32."""
@@ -394,9 +475,7 @@ def fix_contour(step2, cands_t, allowed_range: float):
         return fix_contour_reference(step2, cands_t, allowed_range)
     step2, cands_t = _f32(step2), _f32(cands_t)
     F, C = cands_t.shape
-    if step2.shape != (F,) or F < 1 or not 1 <= C <= MAX_CANDS:
-        raise ValueError(f"fix_contour: step2 {tuple(step2.shape)}, cands_t "
-                         f"{tuple(cands_t.shape)} (1..{MAX_CANDS} candidates)")
+    check_fix_contour(step2.shape, cands_t.shape)
     out = torch.empty((F,), dtype=torch.float32, device=step2.device)
     _launch("fix_contour", _lib().qp_world_fix_contour, step2.device,
             step2.data_ptr(), cands_t.data_ptr(), F, C, float(allowed_range),

@@ -5,9 +5,11 @@ of `ops/world_kernel.py`, made from a seed with numpy as float32 arrays.
 W1's rounds must keep exactly the ranks the serial walk keeps: ties on the
 5% edge, duplicates, tiny candidates against the empty slots, NaN, +inf
 (which turns the other slots to NaN in the plain version) and rank counts
-around the warp's 32 lanes.  W2's min over predecessors and W3's nearest
-candidate must keep the first index of exact ties and let NaN win
-(LessOrNan), whatever order their lanes or trees combine in; W3's walks
+around the warp's 32 lanes; past 16 slots (K up to 255, slots in shared
+memory) a ladder of values 6% apart fills them.  W2's min over
+predecessors and W3's nearest candidate must keep the first index of
+exact ties and let NaN win (LessOrNan), whatever order their lanes, warps
+or trees combine in (up to 256 states and 256 candidates); W3's walks
 must carry their state through gaps at either end, sections of one or two
 frames and NaN.  W4's sums must keep their order through the
 register-blocked tiles, their remainders at W = 513 and 1025 and offset
@@ -96,8 +98,24 @@ ALLOWED_RANGE = 0.10         # DIO's allowed range
 SCREENED = 1e30              # a screened-out candidate's spread
 
 
+def harvest_like_inputs(seed: int, F: int, K: int):
+    """(refined (F, K), score (F, K)) float32 like harvest's: candidates
+    around a wandering contour (distinct per frame), octave errors and
+    misses, every fifth 40-frame stretch unvoiced; device_f0._viterbi makes
+    W2's emits and logf of them."""
+    rng = np.random.default_rng(seed)
+    track = 150.0 * np.exp(np.cumsum(rng.normal(0, 0.02, F)))
+    mult = rng.choice([1.0, 2.0, 0.5, 1.3], size=(F, K), p=[.4, .2, .2, .2])
+    refined = track[:, None] * mult * (1 + rng.normal(0, 0.01, (F, K)))
+    refined[rng.random((F, K)) < 0.25] = 0.0
+    refined[(np.arange(F) // 40) % 5 == 4] = 0.0
+    score = np.where(mult == 1.0, rng.uniform(0.6, 1.0, (F, K)),
+                     rng.uniform(0.0, 0.7, (F, K)))
+    return refined.astype(np.float32), score.astype(np.float32)
+
+
 def pool_edge_inputs(seed: int, n_ch: int, F: int,
-                     agreeing_inf: bool = False):
+                     agreeing_inf: bool = False, ladder: int = 0):
     """(f_sorted, sp_sorted) (n_ch, F) float32 for W1, each frame's ranks
     sorted by spread (stably, NaN last), as device_f0._pool_candidates
     hands them over.  Per frame a base of 20 m Hz with candidates on the
@@ -115,7 +133,11 @@ def pool_edge_inputs(seed: int, n_ch: int, F: int,
     lets one through (a candidate above f0_ceil is screened out), and
     jax_f0._pool_candidates under jax.jit keeps 0 there (XLA multiplies by
     the one-hot as a select), so only the port's plain version is the
-    reference on these."""
+    reference on these.
+
+    ladder > 0 draws half of the candidates from base * 1.06**j, j = 1 ..
+    ladder, instead (each 6% from the next, so no duplicates among them),
+    enough distinct values to fill K slots past 16."""
     rng = np.random.default_rng(seed)
     m = rng.integers(4, 16, size=F).astype(np.float32)
     base = np.float32(20.0) * m
@@ -132,6 +154,10 @@ def pool_edge_inputs(seed: int, n_ch: int, F: int,
     pick = rng.choice(len(choices), size=(n_ch, F),
                       p=np.r_[[0.16] * 7, [0.04] * 7] / 1.4)
     f = choices[pick, np.arange(F)[None, :]].astype(np.float32)
+    if ladder:
+        steps = rng.integers(1, ladder + 1, (n_ch, F))
+        rungs = (base[None, :] * np.float32(1.06) ** steps).astype(np.float32)
+        f = np.where(rng.random((n_ch, F)) < 0.5, rungs, f)
     levels = np.array([0.01, 0.02, 0.05, AGREEMENT_THRESHOLD, 0.2,
                        SCREENED, np.nan], np.float32)
     sp = levels[rng.choice(len(levels), size=(n_ch, F),
@@ -161,7 +187,13 @@ def fix_contour_edge_inputs(seed: int, F: int, C: int, kind: str = "mixed"):
     (3 prev1 - prev2) / 2, and after a 100 Hz section one lies exactly
     the allowed 10% away.  NaN and +inf candidates and NaN in step2 are
     planted here and there (NaN at frame F - 2 from F >= 8 on).  kind
-    "unvoiced": step2 all 0; "voiced": all voiced."""
+    "unvoiced": step2 all 0; "voiced": all voiced.
+
+    Past 32 candidates (W3's lane blocks of ceil(C / 32)) a third candidate
+    ties with the first two, next to one of them (so often in the same
+    lane's block), and NaN and +inf are planted about once in 4 frames
+    each rather than once in 40 candidates, so that ties still reach the
+    selects."""
     rng = np.random.default_rng(seed)
     step2 = np.zeros(F, np.float32)
     track = 150.0 * np.exp(np.cumsum(rng.normal(0.0, 0.01, F)))
@@ -197,7 +229,10 @@ def fix_contour_edge_inputs(seed: int, F: int, C: int, kind: str = "mixed"):
         elif C > 1:
             cands[t, ks[0]] = ref + np.float32(1.0)
             cands[t, ks[1]] = ref - np.float32(1.0)
-    n_bad = max(1, F * C // 40)
+            if C > 32:
+                cands[t, ks[0] ^ 1 if ks[0] ^ 1 < C else ks[0] - 1] = \
+                    ref - np.float32(1.0)
+    n_bad = max(1, F * C // 40 if C <= 32 else F // 4)
     cands.reshape(-1)[rng.integers(0, F * C, n_bad)] = np.nan
     cands.reshape(-1)[rng.integers(0, F * C, n_bad)] = np.inf
     if kind == "mixed":

@@ -204,8 +204,9 @@ def test_what_is_not_ported_raises(expdir):
     """`qpnet_serve --noise_shaping` builds the restoration filter over the
     experiment's stats (one-shot `emphasize` bit for bit); the scan
     engine's combinations load and synthesize what batch_fast_generate
-    gives, while int8_weights cannot stream (the kernel has no weight-only
-    scheme)."""
+    gives, and int8_weights streams as the JAX package streams it (bf16
+    weights through the kernel, which has no weight-only scheme), so its
+    stream is the "none" stream bit for bit; xla with w8a8 raises."""
     from qpnet_tpu_torch.bin import qpnet_serve
     from qpnet_tpu_torch.models import batch_fast_generate
     from qpnet_tpu_torch.ops import encode_mu_law
@@ -237,8 +238,14 @@ def test_what_is_not_ported_raises(expdir):
         np.testing.assert_array_equal(
             v.synthesize(feats),
             np.asarray(decode_mu_law(want[0], cfg.n_quantize), np.float32))
-    with pytest.raises(ValueError, match="int8_weights"):
-        next(load(tmp, quantize="int8_weights").stream(feats))
+    # streaming int8_weights packs bf16 and runs the kernel's bf16 branch,
+    # as the JAX package's StreamingGenerator does: the "none" stream's
+    # audio, bit for bit
+    want = list(load(tmp).stream(feats))
+    got = list(load(tmp, quantize="int8_weights").stream(feats))
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="w8a8"):
         load(tmp, engine="xla", quantize="w8a8")
 

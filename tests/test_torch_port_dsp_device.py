@@ -39,11 +39,11 @@ from qpnet_tpu_torch.dsp.world.device_analysis import (device_analyze,
 from qpnet_tpu_torch.dsp.world.device_f0 import (_fix_contour_scan,
                                                  _viterbi, device_dio,
                                                  device_harvest,
-                                                 device_stonemask, mark,
-                                                 marks_ms, stage_marks)
+                                                 device_stonemask)
 from qpnet_tpu_torch.dsp.world.dio import _fix_contour, dio
 from qpnet_tpu_torch.dsp.world.harvest import harvest
 from qpnet_tpu_torch.dsp.world.stonemask import stonemask
+from torch_port_threads import one_thread  # noqa: F401
 
 FS = 16000
 N = FS
@@ -265,75 +265,10 @@ def test_fix_contour_scan_matches_host_oracle():
 
 
 # ---------------------------------------------------------------------------
-# padding, fused against staged, the analyzer's contract
+# the analyzer's contract (padding, fused against staged and the stage marks
+# are test_torch_port_dsp_device_pass.py and _fused.py: files of their own,
+# so that the test workers take them apart)
 # ---------------------------------------------------------------------------
-
-def test_padding_invariance():
-    """A zero pad beyond n_valid changes nothing: the envelopes of a signal
-    alone and padded a second longer are equal, and npow's mean is taken
-    over the true frames only."""
-    rng = np.random.default_rng(4)
-    n = int(0.55 * FS)
-    ph = 2 * np.pi * np.cumsum(np.full(n, 140.0)) / FS
-    x = (0.5 * np.sin(ph) + 0.02 * rng.normal(size=n)).astype(np.float32)
-    ta = np.arange(0, 0.54, 0.005).astype(np.float32)
-    f0 = np.full(len(ta), 140.0, np.float32)
-    x_pad = np.concatenate([x, np.zeros(FS - n % FS, np.float32)])
-    for fn in (device_cheaptrick, device_d4c):
-        a = fn(_t(x), _t(f0), _t(ta), FS, n_valid=n)
-        b = fn(_t(x_pad), _t(f0), _t(ta), FS, n_valid=n)
-        assert torch.equal(a, b), fn.__name__
-    F = int(n / (FS * 0.005)) + 1
-    npow = device_analyze(_t(x_pad), FS, n, F, 0.41, mcep_dim=24,
-                          device=CPU, **KW)[3].numpy()
-    assert np.isclose(np.mean(10.0 ** (npow[:F] / 10.0)), 1.0, atol=1e-4)
-
-
-@pytest.mark.parametrize("f0_analyzer", ["harvest", "dio"])
-def test_fused_extract_all_matches_staged(f0_analyzer):
-    """extract_all (one pass) reproduces the staged device path: analyze,
-    mcep, codeap, npow with the same stages and buckets."""
-    rng = np.random.default_rng(7)
-    n = int(0.7 * FS)
-    ph = 2 * np.pi * np.cumsum(np.linspace(110, 170, n)) / FS
-    x = (0.6 * np.sin(ph) + 0.15 * np.sin(2 * ph)
-         + 0.01 * rng.normal(size=n)) * 9000
-    kw = dict(fs=FS, minf0=60, maxf0=400, f0_analyzer=f0_analyzer,
-              backend="jax", f0_backend="jax", device="cpu")
-    staged = WorldAnalyzer(**kw)
-    f0_s, _, _ = staged.analyze(x)
-    out = WorldAnalyzer(**kw).extract_all(x, dim=24, alpha=0.41)
-    assert out["f0"].shape == f0_s.shape == (int(n / 80) + 1,)
-    np.testing.assert_array_equal(out["f0"], f0_s)
-    np.testing.assert_allclose(out["mcep"], staged.mcep(dim=24, alpha=0.41),
-                               atol=1e-5)
-    np.testing.assert_allclose(out["codeap"], staged.codeap(), atol=1e-4)
-    np.testing.assert_allclose(out["npow"], staged.npow(), atol=1e-4)
-    np.testing.assert_array_equal(out["time_axis"],
-                                  np.arange(len(f0_s)) * 0.005)
-    assert (out["f0"] > 0).mean() > 0.7
-
-
-def test_stage_marks_split_one_pass():
-    """stage_marks() splits one fused pass by stage (host clock readings on
-    the CPU) without changing its outputs; outside it no mark is kept."""
-    x = _sawtooth()[: int(0.3 * FS)]
-    an = WorldAnalyzer(fs=FS, minf0=60, maxf0=400, backend="jax",
-                       f0_backend="jax", device="cpu")
-    plain = an.extract_all(x, dim=24, alpha=0.41)
-    with stage_marks() as marks:
-        mark("start", CPU)
-        timed = an.extract_all(x, dim=24, alpha=0.41)
-    mark("outside", CPU)
-    split = marks_ms(marks)
-    assert [s for s, _ in split] == [
-        "upload", "F0 candidates", "F0 pooling loop", "F0 refinement",
-        "F0 Viterbi loop", "F0 short runs", "CheapTrick", "D4C", "mcep",
-        "codeap, npow"]
-    assert all(ms >= 0 for _, ms in split)
-    for k in plain:
-        np.testing.assert_array_equal(timed[k], plain[k])
-
 
 @pytest.mark.parametrize("backend,f0_backend", [("jax", "host"),
                                                 ("numpy", "jax"),

@@ -136,8 +136,15 @@ def test_feed_validation(model):
         sess.feed(np.zeros((2, 3, cfg.n_aux)), np.ones((2, 4)))
     with pytest.raises(ValueError, match="maxd"):
         sess.feed(np.zeros((2, 3, cfg.n_aux)), np.full((2, 3), 9.0))
-    with pytest.raises(ValueError, match="no weight-only"):
-        session(cfg, pt, 1, quantize="int8_weights")
+    with pytest.raises(ValueError, match="unknown quantize"):
+        session(cfg, pt, 1, quantize="int4")
+    # int8_weights streams with bf16 weights, as the JAX package's session
+    # does: the "none" session's samples, bit for bit
+    h = np.random.default_rng(3).normal(size=(1, 2, cfg.n_aux))
+    d = np.full((1, 2), 2.0, np.float32)
+    np.testing.assert_array_equal(
+        session(cfg, pt, 1, quantize="int8_weights").feed(h, d),
+        session(cfg, pt, 1).feed(h, d))
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,10 @@
 candidate pooling), W2 (its Viterbi), W3 (DIO's contour walks) and W4 (the
 fractional-box smoothing) in `qpnet_tpu_torch/csrc/world_kernel.cu`,
 modelled in numpy and held bit for bit to the plain versions of
-`qpnet_tpu_torch/ops/world_kernel.py` and (W1, W3) to the JAX stages; and
-the wrappers' plain versions past W2's shared-memory capacity against JAX.
+`qpnet_tpu_torch/ops/world_kernel.py` and (W1, W3) to the JAX stages.
+(The wrappers' plain versions past W2's shared-memory capacity against JAX
+are test_torch_port_world_viterbi_spill_s16.py and _s7.py: each case in a
+file of its own, so that the test workers take them apart.)
 
 The kernels build and run only on the card (chip_smoke.py phase 15 holds
 them to the plain versions there, on these tests' inputs too); these
@@ -51,6 +53,7 @@ from qpnet_tpu.dsp.world import jax_f0
 from qpnet_tpu_torch.dsp.world import device_f0
 from qpnet_tpu_torch.ops import world_kernel as WK
 from qpnet_tpu_torch.ops import world_kernel_cases as CASES
+from torch_port_threads import one_thread  # noqa: F401
 
 TC, UC = CASES.TRANSITION_COST, CASES.UNVOICED_COST
 VIT_THREADS = 128    # csrc VIT_THREADS: the back-track's threads
@@ -75,30 +78,45 @@ def _positions(P):
 
 def lane_min(tot):
     """W2's min over predecessors as the kernel's warp takes it: tot (R, S)
-    rows, one per state.  Lane q of the state's P lanes holds positions
-    q * NPOS .. q * NPOS + NPOS - 1 (csrc vit_positions: NPOS fixed by P;
-    a position past S holds a +inf that never wins) and takes their
-    first-index min as a tree over positions; the butterfly over offsets
-    1, 2, .. < P then makes the kernel's select (csrc replaces() with the
-    lane's side of the partner), so ties go to the lower block, with the
-    index riding along.  Returns (values
-    (R,), indices (R,))."""
+    rows, one per state.  Up to VITERBI_NARROW states, lane q of the
+    state's P lanes holds positions q * NPOS .. q * NPOS + NPOS - 1 (csrc
+    vit_positions: NPOS fixed by P; a position past S holds a +inf that
+    never wins) and takes their first-index min as a tree over positions;
+    past it (the wide build: P lanes of 8 warps, csrc vitw_lanes) lane q
+    walks q * NP .. q * NP + NP - 1, NP = ceil(S / P), in index order from
+    +inf, taking a pair where it replaces the running one.  The butterfly
+    over offsets 1, 2, .. < P then makes the kernel's select (csrc
+    replaces() with the lane's side of the partner), so ties go to the
+    lower block, with the index riding along.  Returns (values (R,),
+    indices (R,))."""
     R, S = tot.shape
     P = WK.viterbi_lanes(S)
-    NPM = _positions(P)
     q = np.arange(P)
-    pos = q[:, None] * NPM + np.arange(NPM)[None, :]        # (P, NPOS)
-    ok = pos < S
-    v = np.where(ok[None], tot[:, np.minimum(pos, S - 1)], np.inf)
-    ix = np.broadcast_to(pos, v.shape).copy()
-    w = 1
-    while w < NPM:
-        for k in range(0, NPM - w, 2 * w):
-            take = _replaces(v[..., k + w], v[..., k])
-            v[..., k] = np.where(take, v[..., k + w], v[..., k])
-            ix[..., k] = np.where(take, ix[..., k + w], ix[..., k])
-        w *= 2
-    best, idx = v[..., 0].astype(np.float32), ix[..., 0]
+    if S <= WK.VITERBI_NARROW:
+        NPM = _positions(P)
+        pos = q[:, None] * NPM + np.arange(NPM)[None, :]     # (P, NPOS)
+        ok = pos < S
+        v = np.where(ok[None], tot[:, np.minimum(pos, S - 1)], np.inf)
+        ix = np.broadcast_to(pos, v.shape).copy()
+        w = 1
+        while w < NPM:
+            for k in range(0, NPM - w, 2 * w):
+                take = _replaces(v[..., k + w], v[..., k])
+                v[..., k] = np.where(take, v[..., k + w], v[..., k])
+                ix[..., k] = np.where(take, ix[..., k + w], ix[..., k])
+            w *= 2
+        best, idx = v[..., 0].astype(np.float32), ix[..., 0]
+    else:
+        NP = -(-S // P)
+        best = np.full((R, P), np.inf, np.float32)
+        idx = np.broadcast_to(q * NP, (R, P)).copy()
+        for k in range(NP):
+            p = q * NP + k
+            real = p < S
+            v = np.where(real[None], tot[:, np.minimum(p, S - 1)], np.inf)
+            take = real[None] & _replaces(v, best)
+            best = np.where(take, v, best).astype(np.float32)
+            idx = np.where(take, p[None], idx)
     off = 1
     while off < P:
         bo, io = best[:, q ^ off], idx[:, q ^ off]
@@ -169,7 +187,8 @@ def viterbi_model(emits, logf, refined, tc, uc):
     (0, uc, or tc * |logf_t[s-1] - logf_{t-1}[p-1]|, each product and
     difference rounded in float32), the chain's lane_min over the previous
     costs plus those, and the emission add; the last frame's first-index
-    argmin; the back-track in G = 128 // S segments (each segment's map
+    argmin; the back-track in G = viterbi_threads(S) // S segments (128 //
+    S up to VITERBI_NARROW states, 256 // S past it; each segment's map
     from end states to start states, chained from the last frame, then
     each segment walked again).  Returns (back-pointers, states, f0)."""
     F, S = emits.shape
@@ -195,7 +214,8 @@ def viterbi_model(emits, logf, refined, tc, uc):
                 or cost[s] < cost[last]:
             last = s
     rows = F - 1
-    G = VIT_THREADS // S
+    G = WK.viterbi_threads(S) // S
+    assert G >= 1
     seg = -(-rows // G) if rows else 0
     bounds = [(min(g * seg, rows), min(min(g * seg, rows) + seg, rows))
               for g in range(G)]
@@ -246,37 +266,6 @@ def test_viterbi_edge_inputs_plant_nan_and_ties():
     assert np.isnan(cost).all()          # NaN won from the tail on
     _, idx = np.unique(emits[:, 1:], return_counts=True)
     assert idx.max() > 100               # repeated emission costs: ties
-
-
-def _long_inputs(seed, F, K):
-    """Harvest-like candidates around a wandering contour (values distinct
-    per frame), with unvoiced stretches."""
-    rng = np.random.default_rng(seed)
-    track = 150.0 * np.exp(np.cumsum(rng.normal(0, 0.02, F)))
-    mult = rng.choice([1.0, 2.0, 0.5, 1.3], size=(F, K), p=[.4, .2, .2, .2])
-    refined = track[:, None] * mult * (1 + rng.normal(0, 0.01, (F, K)))
-    refined[rng.random((F, K)) < 0.25] = 0.0
-    refined[(np.arange(F) // 40) % 5 == 4] = 0.0
-    score = np.where(mult == 1.0, rng.uniform(0.6, 1.0, (F, K)),
-                     rng.uniform(0.0, 0.7, (F, K)))
-    return refined.astype(np.float32), score.astype(np.float32)
-
-
-@pytest.mark.parametrize("F,K", [(15001, 15), (12001, 6)])
-def test_viterbi_past_shared_capacity_matches_jax(F, K):
-    """At lengths whose back-pointers spill from W2's shared memory (75 s
-    at S = 16, 60 s at S = 7), the wrapper on CPU tensors runs the plain
-    version, whose states and f0 equal JAX's _viterbi."""
-    assert WK.viterbi_spills(F, K) and not WK.viterbi_spills(F // 2, K // 2)
-    refined, score = _long_inputs(F + K, F, K)
-    want = np.asarray(jax_f0._viterbi(jnp.asarray(refined),
-                                      jnp.asarray(score), TC, UC))
-    WK.reset_launch_count()
-    got = device_f0._viterbi(torch.from_numpy(refined),
-                             torch.from_numpy(score), TC, UC).numpy()
-    assert WK.launch_count("viterbi") == 0
-    np.testing.assert_array_equal(_bits(got), _bits(want))
-    assert 0.2 < (got > 0).mean() < 0.95
 
 
 @pytest.mark.parametrize("K", range(0, 16))
@@ -442,7 +431,10 @@ def pool_model(f_sorted, sp_sorted, thr, K):
     ballot), its f broadcast, slot n taking 0 + f and the others + 0 * f
     (NaN for +inf), and each lane's dup ORed with its test against the new
     slot alone (reset first when the kept f is +inf: every other slot is
-    then NaN); the groups stop once K are kept.  Returns (F, K)."""
+    then NaN); the groups stop once K are kept.  Past POOL_REGS slots the
+    kernel keeps them in shared memory, lane l adding to slots l, l + 32,
+    .. in a round (each slot still one add a round) and every lane reading
+    each slot for its tests.  Returns (F, K)."""
     n_ch, F = f_sorted.shape
     thr = F32(thr)
     lanes = np.arange(32)
@@ -467,7 +459,14 @@ def pool_model(f_sorted, sp_sorted, thr, K):
                 while m.any() and n < K:
                     src = int(np.argmax(m))
                     fn = f[src]
-                    p = p + np.where(np.arange(K) == n, fn, F32(0.0) * fn)
+                    if K <= WK.POOL_REGS:
+                        p = p + np.where(np.arange(K) == n, fn,
+                                         F32(0.0) * fn)
+                    else:
+                        for lane in range(32):
+                            ks = np.arange(lane, K, 32)
+                            p[ks] = p[ks] + np.where(ks == n, fn,
+                                                     F32(0.0) * fn)
                     pn, n = p[n], n + 1
                     dup = (np.zeros(32, bool) if np.isinf(fn) else dup) \
                         | _pool_dup(f, pn)
@@ -581,16 +580,52 @@ def select_tree(e, c):
     return e[0], c[0]
 
 
+def select_lanes(e, c):
+    """csrc fix_select past FIX_NARROW candidates: e, c (C,) split over 32
+    lanes in blocks of m = ceil(C / 32) (lane l: l * m .. l * m + m - 1,
+    in FIX_LANE_SLOTS = 8 slots, +inf past its block), each lane's tree
+    (select_tree), then the butterfly over offsets 1, 2, .., 16: the upper
+    lane of a pair keeps its own only where it replaces the lower's, the
+    lower takes the upper's only where it replaces its own, the candidate
+    riding along.  Returns (e, c) of the winner, which every lane holds."""
+    C = len(e)
+    m = WK.fix_contour_block(C)
+    lanes = []
+    for lane in range(32):
+        el = np.full(8, np.inf, F32)
+        cl = np.zeros(8, F32)
+        blk = slice(lane * m, min(lane * m + m, C))
+        n = len(range(C)[blk])
+        el[:n], cl[:n] = e[blk], c[blk]
+        lanes.append(select_tree(el, cl))
+    be = np.array([x[0] for x in lanes], F32)
+    bc = np.array([x[1] for x in lanes], F32)
+    q = np.arange(32)
+    off = 1
+    while off < 32:
+        eo, co = be[q ^ off], bc[q ^ off]
+        take = np.where((q & off) != 0, ~_replaces(be, eo),
+                        _replaces(eo, be))
+        be, bc = np.where(take, eo, be), np.where(take, co, bc)
+        off *= 2
+    assert (_bits(be) == _bits(be[0])).all()
+    assert (_bits(bc) == _bits(bc[0])).all()
+    return be[0], bc[0]
+
+
 def fix_select_model(prev1, prev2, cv, C, allowed, stats=None):
     """csrc fix_select on one frame's CW slots cv (the first C real): the
     extrapolation with the halving as a multiply by 0.5, errors |ref - c|
-    (+inf past C), the tree, the fail test's IEEE division."""
+    (+inf past C), the tree, the fail test's IEEE division; past
+    FIX_NARROW candidates cv is the frame's C candidates and the arg-min
+    is select_lanes'."""
     CW = len(cv)
     with np.errstate(all="ignore"):
         ref = (prev1 * F32(3.0) - prev2) * F32(0.5)
         e = np.where(np.arange(CW) < C, np.abs(ref - cv), F32(np.inf))
         e = e.astype(F32)
-        eb, cb = select_tree(e, cv)
+        eb, cb = (select_tree(e, cv) if C <= WK.FIX_NARROW
+                  else select_lanes(e, cv))
         cr = ref if np.isnan(ref) else max(ref, F32(1e-12))
         fail = eb / cr >= F32(allowed)
     if stats is not None:
@@ -634,10 +669,11 @@ def fix_contour_model(step2, cands_t, allowed, stats=None):
     next section (fix_next), reading (prev1, prev2) back from s3; the
     backward walk, on the same s3 in place, selects at gap frames while
     alive and jumps the rest (fix_prev), down to frame 1.  Each select on
-    the CW slots of the frame's row (csrc fix_row: 0 past C).  Returns
-    s3, which the kernel writes to out."""
+    the CW slots of the frame's row (csrc fix_row: 0 past C; past
+    FIX_NARROW the row's C candidates, which select_lanes splits over the
+    lanes).  Returns s3, which the kernel writes to out."""
     F, C = cands_t.shape
-    CW = WK.fix_contour_slots(C)
+    CW = WK.fix_contour_slots(C) if C <= WK.FIX_NARROW else C
     rows = np.zeros((F, CW), F32)
     rows[:, :C] = cands_t
     s2 = step2
