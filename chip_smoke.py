@@ -31,7 +31,17 @@ Phases, each reported on its own line; any failure exits non-zero:
   7. the training main path: `train_loop` with the kernel engine, f32,
      B=1, windows of the batcher over an in-memory corpus at 22,050 Hz,
      4 steps; both K2 kernels launched, finite losses, checkpoint and loss
-     record written and read back; then one step's loss and gradients with
+     record written and read back; the trained state written again through
+     the orbax backend (`checkpoint-4.orbax`, `checkpoint-final.orbax`, the
+     plain layout) and read back, every leaf equal to the pickles' bit for
+     bit and Adam's count 4, then `Vocoder.load` of the `.orbax` final
+     decoding 2 frames at B=1 through K1 in argmax, samples equal bit for
+     bit to the same decode from the pickle (K1's launches go into
+     `launches_by_path["orbax_decode"]`); the committed JAX orbax fixture
+     (`tests/data/orbax_fixture`, OCDBT, zstd-coded) read equal to its
+     pickle twin, the host C++ zstd decoder equal to the plain Python one
+     on every frame in it (manifest, b-tree nodes, chunks); save and load
+     walls and the C++ decoder's MB/s; then one step's loss and gradients with
      each engine from the same parameters and batch: losses within 1e-4,
      and each gradient leaf of the kernel engine no farther from the
      plain engine's f64 gradient than max(1e-3, twice the plain f32
@@ -557,7 +567,8 @@ def main() -> int:
         laps.append((label, time.perf_counter()))
     kernels, case4 = smoke(ModelConfig(), dev, card)
     lap("3-5")
-    kernels += train_smoke(ModelConfig(), dev, card)
+    extra = {}
+    kernels += train_smoke(ModelConfig(), dev, card, extra=extra)
     lap("6-8")
     kernels.insert(1, deep_main(dev, card))
     lap("9-11")
@@ -565,6 +576,7 @@ def main() -> int:
     lap("12")
     kernels[0]["launches_by_path"] = {
         "decode": kernels[0]["launches"],
+        "orbax_decode": extra["orbax_k1_launches"],
         "converted_decode": tools_smoke(ModelConfig(), dev, card)}
     lap("13")
     kernels[0]["launches_by_path"]["soak"] = soak_smoke(dev, card)
@@ -599,6 +611,7 @@ def main() -> int:
                   "this module's import on): " + ", ".join(
                       f"{b[0]} {b[1] - a[1]:.1f}"
                       for a, b in zip(laps, laps[1:]))
+                  + f" (of 6-8, 7's orbax leg {extra['orbax_wall_s']:.1f})"
                   + f"; in all {laps[-1][1] - T_START:.1f} (limit "
                   f"{TIME_LIMIT_S})")
     kernels += list(wk_rows.values())
@@ -1130,9 +1143,122 @@ def k2_check(params, cfg, batch, dtype, fused, dev, label="k2"):
     return (fwd_err, bwd_err), twin_ms
 
 
+def orbax_smoke(cfg, dev, card, expdir, state, steps, extra):
+    """Phase 7's orbax leg in `expdir`, where train_loop left its pickles,
+    and the committed JAX fixture; its wall and K1 launches go into
+    `extra`."""
+    import torch
+
+    from qpnet_tpu_torch.api import Vocoder
+    from qpnet_tpu_torch.config import RunConfig
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    from qpnet_tpu_torch.train import checkpoint as TC
+    from qpnet_tpu_torch.train import orbax_format as OF
+    from qpnet_tpu_torch.train import step as TS
+    from qpnet_tpu_torch.train import zstd as Z
+    from qpnet_tpu_torch.train import zstd_native as N
+    t_start = time.perf_counter()
+
+    def same(a, b):
+        la, lb = TS.tree_leaves(a), TS.tree_leaves(b)
+        return len(la) == len(lb) and all(
+            x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(la, lb))
+
+    opt = TS.optimizer_state(state.opt_state, state.params)
+    t0 = time.perf_counter()
+    paths = (TC.save_checkpoint(expdir, state.params, opt, steps,
+                                backend="orbax"),
+             TC.save_final(expdir, state.params, backend="orbax"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = [TC.load_checkpoint(p) for p in paths]
+    load_s = time.perf_counter() - t0
+    ref = [TC.load_checkpoint(os.path.join(expdir, n)) for n in
+           (f"checkpoint-{steps}.pkl", "checkpoint-final.pkl")]
+    adam = TC.adam_state_from_optax(got[0]["optimizer"])
+    check(got[0]["iterations"] == steps and adam["count"] == steps,
+          f"orbax iteration {got[0]['iterations']}, count {adam['count']}")
+    check(same(got[0]["model"], ref[0]["model"])
+          and same(got[1]["model"], ref[1]["model"])
+          and same(adam["mu"], ref[0]["optimizer"]["mu"])
+          and same(adam["nu"], ref[0]["optimizer"]["nu"]),
+          "orbax checkpoints must reload equal to the pickles")
+    mb = sum(a.nbytes for t in (got[0]["model"], adam["mu"], adam["nu"])
+             for a in TS.tree_leaves(t)) / 1e6
+    # K1 from the .orbax final, beside the same decode from the pickle
+    RunConfig(model=cfg).save(os.path.join(expdir, "model.conf"))
+    feats = np.random.default_rng(8).standard_normal(
+        (2, cfg.n_aux)).astype(np.float32)
+    feats[:, 0], feats[:, 1] = 1.0, 120.0
+    wavs, launches = [], []
+    for ck in (paths[1], os.path.join(expdir, "checkpoint-final.pkl")):
+        voc = Vocoder.load(expdir, checkpoint=ck, device=dev, mode="argmax")
+        K.reset_launch_count()
+        wavs.append(voc.synthesize(feats))
+        launches.append(K.launch_count)
+    check(min(launches) > 0, f"the decodes must launch K1: {launches}")
+    launches = extra["orbax_k1_launches"] = launches[0]
+    n_want = 2 * cfg.upsampling_factor - 1
+    check(wavs[0].shape == (n_want,) and np.array_equal(wavs[0], wavs[1]),
+          "K1's decode from the .orbax checkpoint must equal the pickle's")
+    del voc
+    torch.cuda.empty_cache()
+    phase("orbax", f"train_loop's state through the orbax backend: "
+                   f"{mb:.1f} MB of f32 (parameters, Adam's mu and nu) "
+                   f"saved as checkpoint-{steps}.orbax and "
+                   f"checkpoint-final.orbax in {save_s:.3f} s, loaded in "
+                   f"{load_s:.3f} s, every leaf equal to the pickles, count "
+                   f"{adam['count']}; Vocoder.load of the .orbax final, K1 "
+                   f"argmax B=1 2 frames: {n_want} samples equal to the "
+                   f"pickle's, K1 launches {launches} | {card}")
+
+    # the JAX package's own orbax checkpoint, committed beside the tests
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "orbax_fixture")
+    frames = []
+
+    def native(data):
+        frames.append(bytes(data))
+        return N.decompress(data)
+
+    def native_into(data, out):
+        frames.append(bytes(data))
+        return N.decompress_into(data, out)
+
+    orb = OF.read_checkpoint(os.path.join(fixture, "checkpoint-2.orbax"),
+                             native, native_into)
+    pkl = TC.load_checkpoint(os.path.join(fixture, "checkpoint-2.pkl"))
+    a, b = (TC.adam_state_from_optax(t["optimizer"]) for t in (orb, pkl))
+    check(orb["iterations"] == 2 and a["count"] == b["count"] == 2
+          and same(orb["model"], pkl["model"]) and same(a["mu"], b["mu"])
+          and same(a["nu"], b["nu"]),
+          "the JAX orbax fixture must load equal to its pickle twin")
+    t0 = time.perf_counter()
+    plain = [Z.decompress(f) for f in frames]
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(10):
+        mine = [N.decompress(f) for f in frames]
+    native_s = (time.perf_counter() - t0) / 10
+    check(mine == plain, "the C++ zstd decoder must equal the plain one on "
+                         "every frame of the fixture")
+    out_mb = sum(map(len, plain)) / 1e6
+    wall = time.perf_counter() - t_start
+    extra["orbax_wall_s"] = wall
+    phase("orbax", f"JAX fixture (OCDBT, zstd level 1): equal to its "
+                   f"pickle twin; {len(frames)} zstd frames "
+                   f"({sum(map(len, frames)) / 1e6:.3f} MB in, "
+                   f"{out_mb:.3f} MB out), C++ decoder equal to the plain "
+                   f"one on all, {out_mb / native_s:.1f} MB/s (plain "
+                   f"Python {out_mb / plain_s:.2f} MB/s; host clock, "
+                   f"mean of 10); this leg's wall {wall:.2f} s | {card}")
+
+
 def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
-                batch_length=20000):
-    """Phases 6-8 on `dev`; returns the K2 kernels' records."""
+                batch_length=20000, extra=None):
+    """Phases 6-8 on `dev`; returns the K2 kernels' records.  extra: a
+    dict that takes the orbax leg's wall and K1 launches."""
     import torch
 
     from qpnet_tpu_torch import bench
@@ -1194,6 +1320,8 @@ def train_smoke(cfg, dev, card, T=30030, steps=4, max_length=30000,
                   "checkpoints must reload equal to the trained params")
         check(ckpt["iterations"] == steps
               and ckpt["optimizer"]["count"] == steps, "checkpoint state")
+        orbax_smoke(cfg, dev, card, expdir, state, steps,
+                    {} if extra is None else extra)
         b_np = next(batches())
     phase("main", f"train_loop, kernel engine, f32, B=1, T={T}, "
                   f"{steps} steps: losses {[round(x, 6) for x in losses]}, "

@@ -65,10 +65,11 @@ class Vocoder:
         """path: an experiment directory holding `model.conf` (and by
         default `checkpoint-final.pkl`), or the model.conf path itself.
         checkpoint: an iteration number (-> `checkpoint-<N>.pkl`), a path,
-        or None for `checkpoint-final.pkl`.  stats: the corpus stats h5 (or
-        a Scaler) that standardizes raw WORLD features; omit it only for
-        features that are already standardized.  Reads the pickles of
-        either package."""
+        or None for `checkpoint-final.pkl`; a `.pkl` that is missing falls
+        back to its `.orbax` twin.  stats: the corpus stats h5 (or a
+        Scaler) that standardizes raw WORLD features; omit it only for
+        features that are already standardized.  Reads either backend's
+        checkpoints written by either package."""
         from qpnet_tpu_torch.models.qpnet import params_from_numpy
         from qpnet_tpu_torch.train.checkpoint import load_checkpoint
 

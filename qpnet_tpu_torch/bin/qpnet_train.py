@@ -22,8 +22,10 @@ with dp only).  All three run the plain engine.  One host runs
 max(--n_devices, tp * sp * pp) ranks, a (dp, tp, sp) or (dp, pp) mesh with
 dp = ranks / (tp * sp * pp); --batch_size is the global batch and must
 divide over dp.  The launcher forwards SIGTERM to its ranks (each saves at
-the agreed iteration and exits) and fails if any rank fails.  The orbax
-checkpoint backend is not ported (NotImplementedError).
+the agreed iteration and exits) and fails if any rank fails.
+QPNET_CKPT_BACKEND=orbax writes `.orbax` checkpoint directories
+(`train/orbax_format.py`); under a mesh the lead rank writes the gathered
+state, as for pickles.
 """
 
 from __future__ import annotations
@@ -122,12 +124,6 @@ def get_arguments(argv=None):
                         help="cpu runs the kernel's plain PyTorch twin")
     parser.add_argument("--verbose", default=1, type=int)
     return parser.parse_args(argv)
-
-
-def check_ported(args) -> None:
-    """Raise on argv that asks for what the port does not have yet."""
-    from qpnet_tpu_torch.train.checkpoint import checkpoint_backend
-    checkpoint_backend()
 
 
 def dp_layout(args):
@@ -266,7 +262,6 @@ def spawn_ranks(args, hosts, local_ranks: int, init_method: str) -> None:
 def main(argv=None):
     args = get_arguments(argv)
     set_loglevel(args.verbose)
-    check_ported(args)
     hosts, local_ranks = dp_layout(args)
     from qpnet_tpu_torch.models.qpnet import resolve_device
     resolve_device(args.device)   # before anything is written

@@ -1,6 +1,6 @@
 """SD-QPNet adaptation worker on one GPU: fine-tunes the full network from
-an SI `checkpoint-final.pkl` (`--pretrain`, fresh optimizer, iterations
-reset) or resumes an interrupted update (`--resume`).  Network
+an SI `checkpoint-final.pkl` or `.orbax` (`--pretrain`, fresh optimizer,
+iterations reset) or resumes an interrupted update (`--resume`).  Network
 hyper-parameters come from the SI run's `model.conf`.  Same argv as
 `qpnet_tpu.bin.qpnet_update`, plus --device.
 """
@@ -55,8 +55,6 @@ def main(argv=None):
     args = get_arguments(argv)
     set_loglevel(args.verbose)
     from qpnet_tpu_torch.models.qpnet import resolve_device
-    from qpnet_tpu_torch.train.checkpoint import checkpoint_backend
-    checkpoint_backend()
     resolve_device(args.device)
     for key, value in vars(args).items():
         logging.info("%s = %s", key, str(value))

@@ -1,16 +1,24 @@
-"""Checkpoints of the port (pickle backend only), in the JAX package's
-file contract: `checkpoint-<iter>.pkl` holds {"model", "optimizer",
+"""Checkpoints of the port, in the JAX package's file contract: the pickle
+backend writes `checkpoint-<iter>.pkl` holding {"model", "optimizer",
 "iterations"} and `checkpoint-final.pkl` {"model"}, with `model` the
 parameter tree in the JAX layout (dicts and lists of numpy arrays), so the
 JAX package loads the port's files and the other way round.
 
-The port writes `optimizer` as {"count": int, "mu": tree, "nu": tree}:
-Adam's step count and first and second moments, numpy arrays in the
+The port's pickles hold `optimizer` as {"count": int, "mu": tree, "nu":
+tree}: Adam's step count and first and second moments, numpy arrays in the
 parameters' layout.  The JAX package's own iteration pickles hold optax's
 state objects instead; the port reads them with no JAX or optax installed
 (classes of those packages unpickle as inert placeholders) and
-`adam_state_from_optax` takes the Adam moments out of them.  Orbax
-checkpoints stay with the JAX package.
+`adam_state_from_optax` takes the Adam moments out of them.
+
+The orbax backend (`backend="orbax"`, or QPNET_CKPT_BACKEND=orbax) writes
+`checkpoint-<iter>.orbax/` and `checkpoint-final.orbax/` directories in
+orbax's format, without orbax (`train/orbax_format.py`): the optimizer as
+the list orbax makes of optax's chain, [{"count", "mu", "nu"}, None] (with
+a leading None under weight decay), so the JAX trainer restores it into its
+optax state.  `load_checkpoint` reads either backend's files from either
+package, orbax's OCDBT layout included, and a `.pkl` path whose file is
+missing falls back to its `.orbax` twin.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import os
 import pickle
 
 import numpy as np
+
+from qpnet_tpu_torch.train import orbax_format
 
 _FOREIGN = ("jax", "jaxlib", "optax")
 
@@ -46,23 +56,21 @@ class _PortUnpickler(pickle.Unpickler):
 
 
 def load_checkpoint(path: str) -> dict:
-    """Load a pickle checkpoint written by either package."""
+    """Load a checkpoint of either backend written by either package;
+    `path` may also name the .pkl while only the .orbax twin exists."""
     if os.path.isdir(path) or path.endswith(".orbax"):
-        raise NotImplementedError(ORBAX)
+        return orbax_format.read_checkpoint(path)
+    twin = path[:-len(".pkl")] + ".orbax"
+    if (path.endswith(".pkl") and not os.path.exists(path)
+            and os.path.isdir(twin)):
+        return load_checkpoint(twin)
     with open(path, "rb") as f:
         return _PortUnpickler(f).load()
 
 
-ORBAX = ("orbax checkpoints are read and written by the JAX package only; "
-         "the port reads and writes the pickle format")
-
-
 def checkpoint_backend(backend: str = None) -> str:
-    """The effective backend name: "pickle", the only one the port has."""
-    name = backend or os.environ.get("QPNET_CKPT_BACKEND", "pickle")
-    if name != "pickle":
-        raise NotImplementedError(ORBAX)
-    return name
+    """The effective backend name ("pickle" or "orbax")."""
+    return backend or os.environ.get("QPNET_CKPT_BACKEND", "pickle")
 
 
 def _to_numpy(tree):
@@ -84,24 +92,39 @@ def _dump(path: str, payload: dict) -> str:
 
 
 def save_checkpoint(checkpoint_dir: str, params, opt_state: dict,
-                    iterations: int, backend: str = None) -> str:
-    """Write checkpoint-<iterations>.pkl.  params: the parameter tree
-    (tensors or arrays); opt_state: {"count", "mu", "nu"}."""
-    checkpoint_backend(backend)
+                    iterations: int, backend: str = None,
+                    weight_decay: float = 0.0) -> str:
+    """Write checkpoint-<iterations>.pkl, or .orbax under the orbax
+    backend.  params: the parameter tree (tensors or arrays); opt_state:
+    {"count", "mu", "nu"}; weight_decay: the optimizer's, which decides
+    the layout of optax's chain in an orbax checkpoint."""
     os.makedirs(checkpoint_dir, exist_ok=True)
-    payload = {"model": _to_numpy(params),
-               "optimizer": {"count": int(opt_state["count"]),
-                             "mu": _to_numpy(opt_state["mu"]),
-                             "nu": _to_numpy(opt_state["nu"])},
+    model = _to_numpy(params)
+    mu, nu = _to_numpy(opt_state["mu"]), _to_numpy(opt_state["nu"])
+    if checkpoint_backend(backend) == "orbax":
+        adam = {"count": np.asarray(int(opt_state["count"]), np.int32),
+                "mu": mu, "nu": nu}
+        chain = ([None] if weight_decay else []) + [adam, None]
+        return orbax_format.write_checkpoint(
+            os.path.join(checkpoint_dir, f"checkpoint-{iterations}.orbax"),
+            {"model": model, "optimizer": chain,
+             "iterations": int(iterations)})
+    payload = {"model": model,
+               "optimizer": {"count": int(opt_state["count"]), "mu": mu,
+                             "nu": nu},
                "iterations": int(iterations)}
     return _dump(os.path.join(checkpoint_dir,
                               f"checkpoint-{iterations}.pkl"), payload)
 
 
 def save_final(checkpoint_dir: str, params, backend: str = None) -> str:
-    """Write the weights-only checkpoint-final.pkl."""
-    checkpoint_backend(backend)
+    """Write the weights-only checkpoint-final.pkl, or .orbax under the
+    orbax backend."""
     os.makedirs(checkpoint_dir, exist_ok=True)
+    if checkpoint_backend(backend) == "orbax":
+        return orbax_format.write_checkpoint(
+            os.path.join(checkpoint_dir, "checkpoint-final.orbax"),
+            {"model": _to_numpy(params)})
     return _dump(os.path.join(checkpoint_dir, "checkpoint-final.pkl"),
                  {"model": _to_numpy(params)})
 
@@ -111,7 +134,11 @@ def adam_state_from_optax(state) -> dict:
     stores it: the port's dict; optax's ScaleByAdamState (live, or as the
     inert placeholder a pickle gives, whose `args` are (count, mu, nu));
     or an optax chain's tuple of states, where the decay and scale steps
-    hold empty states around it."""
+    hold empty states around it, also as orbax stores the chain: a list,
+    or a dict keyed "0", "1", ..., with None for the empty states."""
+    if isinstance(state, dict) and state and all(
+            isinstance(k, str) and k.isdigit() for k in state):
+        state = [state[k] for k in sorted(state, key=int)]
     if isinstance(state, dict) and {"count", "mu", "nu"} <= set(state):
         return {"count": int(np.asarray(state["count"])), "mu": state["mu"],
                 "nu": state["nu"]}

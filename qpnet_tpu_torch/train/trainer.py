@@ -2,9 +2,10 @@
 device.  The JAX package's `qpnet_tpu/train/trainer.py` behaviour: prefetched
 batches, the loss averaged every `intervals` iterations and logged with an
 ETA, `checkpoint-<iter>.pkl` every `checkpoint_interval`, the weights-only
-`checkpoint-final.pkl`, the `loss-final.yml` history, `--resume` (a path, or
-"auto" for the newest checkpoint in expdir), `--pretrain` (weights only,
-fresh optimizer) and cooperative preemption.
+`checkpoint-final.pkl` (`.orbax` directories under QPNET_CKPT_BACKEND=orbax),
+the `loss-final.yml` history, `--resume` (a path, or "auto" for the newest
+checkpoint of either backend in expdir), `--pretrain` (weights only, fresh
+optimizer) and cooperative preemption.
 
 `run_training` reads the corpus from wav/h5 lists; `train_loop` is the loop
 itself over any stream of the batcher's batches (chip_smoke.py feeds it the
@@ -45,7 +46,6 @@ from qpnet_tpu_torch.data.batcher import (background, padded_shape,
 from qpnet_tpu_torch.models.qpnet import (count_params, init_params,
                                           params_from_numpy, resolve_device)
 from qpnet_tpu_torch.train.checkpoint import (adam_state_from_optax,
-                                              checkpoint_backend,
                                               load_checkpoint,
                                               save_checkpoint, save_final)
 from qpnet_tpu_torch.train.step import (TrainState, batch_to_device,
@@ -169,7 +169,6 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
     # the ranks that take part in writing a checkpoint: the lead's tp
     # group gathers the shards
     writes = world is None or world.dp_rank == 0
-    checkpoint_backend()
     os.makedirs(expdir, exist_ok=True)
     np.random.seed(tcfg.seed)
     params = init_params(tcfg.seed, cfg, device=device)
@@ -251,7 +250,8 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
         params = gather_params(mesh, state.params)
         opt_state = full_optimizer_state(mesh, state.opt_state, state.params)
         if is_lead:
-            save_checkpoint(expdir, params, opt_state, it)
+            save_checkpoint(expdir, params, opt_state, it,
+                            weight_decay=tcfg.weight_decay)
 
     # losses stay on the device until the logging interval
     pending = []

@@ -245,8 +245,12 @@ def test_jax_reads_the_ports_checkpoints(tmp_path):
                      torch.from_numpy(b["h"]), torch.from_numpy(b["d"]))
     np.testing.assert_allclose(np.asarray(out), ref.detach().numpy(),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        TC.save_final(str(tmp_path), pt, backend="orbax")
+    # the orbax backend: JAX reads the port's directory bit for bit
+    orb = TC.save_final(str(tmp_path), pt, backend="orbax")
+    assert orb.endswith("checkpoint-final.orbax") and os.path.isdir(orb)
+    flat = jax.tree_util.tree_leaves(JC.load_checkpoint(orb)["model"])
+    for a, b in zip(flat, TS.tree_leaves(pt), strict=True):
+        np.testing.assert_array_equal(np.asarray(a), b.detach().numpy())
 
 
 def test_port_resumes_from_a_jax_checkpoint(tmp_path):
@@ -448,16 +452,37 @@ def test_cli_rejects_what_is_not_ported(corpus, tmp_path, extra, monkeypatch):
 
 
 def test_orbax_backend_is_not_ported(corpus, tmp_path, monkeypatch):
+    """QPNET_CKPT_BACKEND=orbax: the train and update CLIs write .orbax
+    directories (and no pickle), which both packages read."""
     from qpnet_tpu_torch.bin import qpnet_train as cli
     from qpnet_tpu_torch.bin import qpnet_update as upd
     monkeypatch.setenv("QPNET_CKPT_BACKEND", "orbax")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        cli.main(train_argv(corpus, str(tmp_path), "--device", "cpu"))
-    with pytest.raises(NotImplementedError, match="orbax"):
-        upd.main(["--waveforms", corpus["wav"], "--feats", corpus["feat"],
-                  "--stats", corpus["stats"], "--expdir", str(tmp_path),
-                  "--config", "x.conf", "--pretrain", corpus["pretrain"],
-                  "--device", "cpu"])
+    si = str(tmp_path / "si")
+    cli.main(train_argv(corpus, si, "--device", "cpu"))
+    names = sorted(n for n in os.listdir(si) if n.startswith("checkpoint"))
+    assert names == ["checkpoint-2.orbax", "checkpoint-4.orbax",
+                     "checkpoint-final.orbax"]
+    ck = TC.load_checkpoint(os.path.join(si, "checkpoint-4.pkl"))
+    jck = JC.load_checkpoint(os.path.join(si, "checkpoint-4.orbax"))
+    assert ck["iterations"] == jck["iterations"] == 4
+    assert TC.adam_state_from_optax(ck["optimizer"])["count"] == 4
+    for a, b in zip(jax.tree_util.tree_leaves(jck),
+                    jax.tree_util.tree_leaves(ck), strict=True):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    sd = str(tmp_path / "sd")
+    upd.main(["--waveforms", corpus["wav"], "--feats", corpus["feat"],
+              "--stats", corpus["stats"], "--expdir", sd,
+              "--config", os.path.join(si, "model.conf"),
+              "--pretrain", os.path.join(si, "checkpoint-final.orbax"),
+              "--batch_length", "200", "--max_length", "300",
+              "--iters", "2", "--checkpoint_interval", "2",
+              "--intervals", "1", "--device", "cpu", "--verbose", "0"])
+    assert sorted(n for n in os.listdir(sd) if n.startswith("checkpoint")) \
+        == ["checkpoint-2.orbax", "checkpoint-final.orbax"]
+    final = JC.load_checkpoint(os.path.join(sd, "checkpoint-final.pkl"))
+    assert jax.tree_util.tree_structure(final["model"]) == \
+        jax.tree_util.tree_structure(TC.load_checkpoint(
+            os.path.join(sd, "checkpoint-final.orbax"))["model"])
 
 
 def test_update_cli_fine_tunes_from_si(corpus, tmp_path):
