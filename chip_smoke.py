@@ -172,11 +172,17 @@ Phases, each reported on its own line; any failure exits non-zero:
      first audio and realtime factor with and without the filter; times
      (extraction, shaping and synthesis ms per second of audio, host and
      device; the filter's ms per 5,500-sample chunk beside K1's feed of
-     it).  K1's launches go into the `kernels` line's `launches_by_path`
-     as "recipe" and "serve_ns".
-     Where h5py is missing (the card's machine has none), the phase's h5
-     files go through a stand-in for `h5py.File` (pickled arrays), and its
-     CLI walls say so.
+     it); the port's HDF5 on the recipe's feature files (write_hdf5 and
+     read_hdf5 ms per call and MB/s, each dataset read back bit for bit);
+     then the h5py-written fixture (tests/data/h5_fixture): every dataset
+     read bit for bit against its .npz twin, each file written again by
+     the port's write_hdf5 and read back equal, K1 against its twins at
+     its decode's shape (B=2) and `qpnet_decode.main` of its two feature
+     files with its stats through K1 (launched; wavs of F*up - 1
+     samples).  K1's launches go into the `kernels` line's
+     `launches_by_path` as "recipe", "serve_ns" and "h5_fixture".  Every
+     h5 file of phases 16-18 is HDF5, read and written by the port's
+     `data/hdf5_format.py`, which needs no h5py.
  17. the synthetic recipe (qpnet_tpu_torch/recipes/run_synth.sh's stages
      c f t a d s e, in process, with the argv the script gives and the
      device analysis; runFE with 2 host worker processes, runQP's
@@ -196,7 +202,6 @@ Phases, each reported on its own line; any failure exits non-zero:
      `evaluate` of the restored wavs against the source wavs (printed, not
      gated: 100 iterations set no quality bar); each stage's wall and peak
      device memory.  K1's launches go into `launches_by_path["run_synth"]`.
-     Its h5 files go through phase 16's stand-in where h5py is missing.
  18. data parallelism on the one card, two shards or ranks sharing it:
      K1 at the shard's shape (B=10 of phase 4's batch, the frame of the
      largest d) against its twins in forced mode on phase 3's f64 gate,
@@ -294,78 +299,6 @@ FS = 22050
 F64_TOL = 2e-2
 ARGMAX_AGREE_MIN = 0.98
 AGREE_MIN = 0.85             # argmax/sampling agreement over 40 samples
-H5_STAND_IN_ENV = "QPNET_SMOKE_H5_STAND_IN"   # phase 16's workers: see below
-
-
-def _install_h5_stand_in() -> bool:
-    """Where h5py is missing (the card's machine has none), register a
-    stand-in for the part of `h5py.File` the port's h5 I/O uses: a file
-    holds a pickled dict of numpy arrays, datasets by path, a group being
-    a path prefix.  Phase 16's workers then run their file I/O unchanged;
-    the h5 format itself, read and written by each package for the other,
-    is checked on the CPU (tests/test_torch_port_features_io.py).  Phase
-    16 installs it and sets H5_STAND_IN_ENV, so the workers it spawns,
-    which import the main module first, install it too.  Returns True
-    when installed."""
-    try:
-        import h5py  # noqa: F401
-        return False
-    except ImportError:
-        pass
-    import pickle
-    import types
-
-    class Dataset:
-        def __init__(self, a):
-            self._a = a
-            self.shape = a.shape
-
-        def __getitem__(self, key):
-            return self._a[key]
-
-    class File:
-        def __init__(self, name, mode="r"):
-            self.name, self.mode, self.sets = name, mode, {}
-            if os.path.exists(name):
-                with open(name, "rb") as f:
-                    self.sets = pickle.load(f)
-            elif mode == "r":
-                raise FileNotFoundError(name)
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            if self.mode != "r" and exc[0] is None:
-                with open(self.name, "wb") as f:
-                    pickle.dump(self.sets, f)
-
-        def __contains__(self, path):
-            k = path.strip("/")
-            return k in self.sets or any(n.startswith(k + "/")
-                                         for n in self.sets)
-
-        def __getitem__(self, path):
-            return Dataset(self.sets[path.strip("/")])
-
-        def __delitem__(self, path):
-            del self.sets[path.strip("/")]
-
-        def create_dataset(self, path, data):
-            self.sets[path.strip("/")] = np.array(data)
-
-        def visititems(self, fn):
-            for k in sorted(self.sets):
-                fn(k, Dataset(self.sets[k]))
-
-    mod = types.ModuleType("h5py")
-    mod.File, mod.Dataset = File, Dataset
-    sys.modules["h5py"] = mod
-    return True
-
-
-if os.environ.get(H5_STAND_IN_ENV) == "1":
-    _install_h5_stand_in()
 
 
 T_START = time.perf_counter()
@@ -586,6 +519,7 @@ def main() -> int:
     lap("15")
     (kernels[0]["launches_by_path"]["recipe"],
      kernels[0]["launches_by_path"]["serve_ns"],
+     kernels[0]["launches_by_path"]["h5_fixture"],
      wk_fe) = recipe_smoke(dev, card)
     lap("16")
     kernels[0]["launches_by_path"]["run_synth"], wk_rs = synth_recipe_smoke(
@@ -2744,15 +2678,6 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def _h5_sets(path):
-    import h5py
-    with h5py.File(path, "r") as f:
-        out = {}
-        f.visititems(lambda k, v: out.__setitem__(k, v[()])
-                     if isinstance(v, h5py.Dataset) else None)
-    return out
-
-
 def _schema(sets):
     """Datasets with their dtypes and shapes; /vad_idx's length follows the
     frames' power, so only its rank counts."""
@@ -2779,6 +2704,130 @@ def _recipe_corpus(root, rng):
     return paths, lst
 
 
+H5_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "data", "h5_fixture")
+H5_FIXTURE_FEATS = ("utt1", "utt2")   # its feature files, with stats.h5
+
+
+def h5_times(feats, tmp):
+    """The port's write_hdf5 and read_hdf5 per call on the recipe's feature
+    files: each file's datasets written again one by one into a new file
+    (as feature_extract writes them), then read; ms per call (median,
+    lowest-highest) and MB/s of dataset bytes over all calls."""
+    from qpnet_tpu_torch.data import read_hdf5, write_hdf5
+    from qpnet_tpu_torch.data.hdf5_format import list_datasets
+    w_ms, r_ms, nbytes = [], [], 0
+    for i, src in enumerate(feats):
+        sets = list_datasets(src)
+        dst = os.path.join(tmp, "h5_times", f"{i}.h5")
+        for k, v in sets.items():
+            t0 = time.perf_counter()
+            write_hdf5(dst, "/" + k, v)
+            w_ms.append((time.perf_counter() - t0) * 1e3)
+            nbytes += np.asarray(v).nbytes
+        for k, v in sets.items():
+            t0 = time.perf_counter()
+            got = read_hdf5(dst, "/" + k)
+            r_ms.append((time.perf_counter() - t0) * 1e3)
+            check(np.asarray(got).tobytes() == np.asarray(v).tobytes(),
+                  f"{dst} {k}: read back differs")
+        size = os.path.getsize(dst)
+
+    def line(name, ms):
+        return (f"{name} {np.median(ms):.4f} ({min(ms):.4f}-{max(ms):.4f}) "
+                f"ms per call, {nbytes / 1e6 / (sum(ms) / 1e3):.2f} MB/s")
+    return (f"{len(w_ms)} datasets, {nbytes} bytes of data (the last file "
+            f"{size} bytes): " + line("write_hdf5", w_ms) + "; "
+            + line("read_hdf5", r_ms) + " (host clock)")
+
+
+def h5_fixture_leg(dev, card, tmp, conf, ckpt, run_cfg, rng):
+    """Phase 16's fixture leg: every dataset of the h5py-written fixture
+    (tests/data/h5_fixture, tests/torch_port_h5_fixture.py) read bit for
+    bit against its .npz twin; each file's datasets written again by the
+    port's write_hdf5 into a copy and read back equal; `qpnet_decode.main`
+    of its feature files with its stats at B=2 (default net, random
+    weights seed 0) through K1, after K1 against its twins at that shape.
+    Returns K1's launches in the decode."""
+    import shutil
+
+    import torch
+    from scipy.io import wavfile
+
+    from qpnet_tpu_torch.bin import qpnet_decode
+    from qpnet_tpu_torch.data import load_scaler, read_hdf5, write_hdf5
+    from qpnet_tpu_torch.data.hdf5_format import list_datasets
+    from qpnet_tpu_torch.models.qpnet import init_params
+    from qpnet_tpu_torch.ops import gen_kernel as K
+    t_leg = time.perf_counter()
+    cfg = run_cfg.model
+    twin = np.load(os.path.join(H5_FIXTURE, "arrays.npz"))
+    root = os.path.join(tmp, "h5_fixture")
+    shutil.copytree(H5_FIXTURE, root)
+    files = sorted(n[:-3] for n in os.listdir(root) if n.endswith(".h5"))
+    n_sets = 0
+    for stem in files:
+        got = list_datasets(os.path.join(root, f"{stem}.h5"))
+        want = {k[len(stem) + 1:]: twin[k] for k in twin.files
+                if k.startswith(stem + "/")}
+        check(sorted(got) == sorted(want) and bool(want),
+              f"fixture {stem}: datasets {sorted(got)} != {sorted(want)}")
+        copy = os.path.join(root, "rewritten", f"{stem}.h5")
+        for k, v in want.items():
+            g = np.asarray(got[k])
+            check(g.dtype == v.dtype and g.shape == v.shape
+                  and g.tobytes() == v.tobytes(),
+                  f"fixture {stem}/{k} differs from its twin")
+            write_hdf5(copy, "/" + k, v)
+        for k, v in want.items():
+            g = np.asarray(read_hdf5(copy, "/" + k))
+            check(g.dtype == v.dtype and g.tobytes() == v.tobytes(),
+                  f"fixture {stem}/{k} rewritten by the port reads back "
+                  f"different")
+        n_sets += len(want)
+    phase("recipe", f"h5py-written fixture: {len(files)} files, {n_sets} "
+                    f"datasets read bit for bit against the .npz twin, and "
+                    f"again after the port's write_hdf5 rewrote each file")
+    feats = [os.path.join(root, f"{n}.h5") for n in H5_FIXTURE_FEATS]
+    scp = os.path.join(root, "feats.scp")
+    with open(scp, "w") as f:
+        f.write("\n".join(feats) + "\n")
+    stats = os.path.join(root, "stats.h5")
+    gen = os.path.join(root, "gen", "feat_id.wav")
+    argv = ["--feats", scp, "--stats", stats, "--config", conf, "--outdir",
+            gen, "--checkpoint", ckpt, "--batch_size", "2", "--fs",
+            str(FS), "--device", dev.type, "--verbose", "0"]
+    (_, _, h, _, d), = qpnet_decode.decode_batches(
+        feats, run_cfg, qpnet_decode.get_arguments(argv), load_scaler(stats))
+    params = init_params(0, cfg, device=dev)
+    err, maxd = path_shape_check(K, params, cfg, h,
+                                 d[:, ::cfg.upsampling_factor], NS_K1_FRAMES,
+                                 rng, dev, "h5_fixture k1")
+    del params
+    torch.cuda.synchronize()
+    K.reset_launch_count()
+    _, dec_s = _timed(lambda: qpnet_decode.main(argv))
+    launches = K.launch_count
+    check(launches > 0, "the fixture's decode must launch K1")
+    lens = []
+    for p in feats:
+        stem = os.path.basename(p)[:-3]
+        fs, x = wavfile.read(gen.replace("feat_id", stem))
+        n_want = len(read_hdf5(p, "/f0")) * cfg.upsampling_factor - 1
+        check(fs == FS and x.dtype == np.int16 and x.shape == (n_want,)
+              and int(x.max()) > int(x.min()),
+              f"fixture decode {stem}: {x.shape} (want {n_want})")
+        lens.append(len(x))
+    phase("recipe", f"qpnet_decode of the fixture's {len(feats)} feature "
+                    f"files with its stats at B=2 (default net, random "
+                    f"weights seed 0; K1 at its shape, maxd {maxd}: max "
+                    f"|dlogit| to the f64 twin {err:.3e}): K1 launches "
+                    f"{launches}, wavs of {lens} samples (F*up - 1), "
+                    f"{dec_s:.3f} s; the leg's wall "
+                    f"{time.perf_counter() - t_leg:.2f} s | {card}")
+    return launches
+
+
 def recipe_smoke(dev, card):
     """Phase 16: the recipe's workers (feature_extract on the host through
     the spawn pool and on the card, calc_stats, noise_shaping, the restore
@@ -2798,6 +2847,7 @@ def recipe_smoke(dev, card):
                                      qpnet_decode, qpnet_serve)
     from qpnet_tpu_torch.config import ModelConfig, RunConfig
     from qpnet_tpu_torch.data import load_scaler, read_hdf5, write_hdf5
+    from qpnet_tpu_torch.data.hdf5_format import list_datasets
     from qpnet_tpu_torch.dsp import mlsa
     from qpnet_tpu_torch.dsp.emphasis import (StreamingEmphasizer,
                                               emphasis_coefs, emphasize,
@@ -2824,14 +2874,6 @@ def recipe_smoke(dev, card):
         os.rmdir(tmp)
     check("wav" not in tmp, f"temp dir {tmp} must not contain 'wav'")
     dv = dev.type
-    stand_in = _install_h5_stand_in()
-    io = ""
-    if stand_in:
-        os.environ[H5_STAND_IN_ENV] = "1"
-        io = "; h5 files through the h5py stand-in (pickle, not HDF5)"
-        phase("recipe", "h5py is not installed here: the workers' h5 files "
-                        "go through chip_smoke's stand-in for h5py.File, "
-                        "so the CLI walls below time pickle I/O, not HDF5")
     try:
         rng = np.random.default_rng(16)
         host_root, dev_root = (os.path.join(tmp, n) for n in ("host", "dev"))
@@ -2869,9 +2911,9 @@ def recipe_smoke(dev, card):
              "--feature_dir", staged] + common)
         feats = [os.path.join(host_root, "h5", f"{i}.h5") for i in ids]
         for i, utt in enumerate(ids):
-            h = _h5_sets(feats[i])
-            d = _h5_sets(os.path.join(dev_root, "h5", f"{utt}.h5"))
-            s = _h5_sets(os.path.join(staged, f"{utt}.h5"))
+            h = list_datasets(feats[i])
+            d = list_datasets(os.path.join(dev_root, "h5", f"{utt}.h5"))
+            s = list_datasets(os.path.join(staged, f"{utt}.h5"))
             schema = _schema(h)
             check(schema == _schema(d) == _schema(s),
                   f"{utt}: h5 schemas differ: {schema} {_schema(d)} "
@@ -2906,7 +2948,7 @@ def recipe_smoke(dev, card):
                       f"of audio (wall, spawning included); device backends "
                       f"(fused, depth 2, after a warm-up pass) "
                       f"{dev_s * 1e3 / audio_s:.3f} ms/s, W1-W4 launches "
-                      f"{wk_fe}; peak device memory {ext_mib:.1f} MiB{io} | "
+                      f"{wk_fe}; peak device memory {ext_mib:.1f} MiB | "
                       f"{card}")
 
         # stats: the streaming scaler against one float64 batch
@@ -2955,7 +2997,7 @@ def recipe_smoke(dev, card):
                         f"against the plain loop max |d| / max |ref| "
                         f"{d_core:.2e} (max 1e-12, before int16 rounding)")
         phase("time", f"noise_shaping {ns_s * 1e3 / audio_s:.3f} ms per "
-                      f"second of audio (one worker, CLI wall{io}) | {card}")
+                      f"second of audio (one worker, CLI wall) | {card}")
 
         # the restore pass on the card: one utterance queued without a sync;
         # pulse times, the ap = 0 waveform, MCD on the JAX test's inputs
@@ -3061,7 +3103,7 @@ def recipe_smoke(dev, card):
                       f"alone: host {host_syn_s * 1e3 / secs0:.3f} ms/s, "
                       f"device restore {synth_ms[0] / secs0:.3f} "
                       f"({synth_ms[1] / secs0:.3f}-{synth_ms[2] / secs0:.3f})"
-                      f" ms/s (median of 5, CUDA events){io} | {card}")
+                      f" ms/s (median of 5, CUDA events) | {card}")
 
         # decode the extracted features through K1, then noise_restored
         cfg = ModelConfig()
@@ -3113,6 +3155,15 @@ def recipe_smoke(dev, card):
                         f"{dec_s:.3f} s, peak device memory {dec_mib:.1f} "
                         f"MiB; noise_restored: each file equal to emphasize "
                         f"of the decoded wav | {card}")
+
+        # the port's HDF5 on the recipe's files, then the h5py-written
+        # fixture: read, rewritten, decoded through K1
+        h5_line = h5_times(feats, tmp)
+        phase("time", f"HDF5 through the port's reader and writer "
+                      f"(data/hdf5_format.py) on the {len(feats)} extracted "
+                      f"feature files: {h5_line} | {card}")
+        fixture_launches = h5_fixture_leg(dev, card, tmp, conf, ckpt,
+                                          run_cfg, rng)
 
         # serving with --noise_shaping: the factory and frontend of the
         # serve CLI's own code, 3 TCP streams of NS_FRAMES frames
@@ -3240,10 +3291,8 @@ def recipe_smoke(dev, card):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        if stand_in:
-            del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
     phase("recipe", f"phase 16 took {time.perf_counter() - t_phase:.1f} s")
-    return recipe_launches, serve_launches, wk_fe
+    return recipe_launches, serve_launches, fixture_launches, wk_fe
 
 
 # --- phase 17: the synthetic recipe on the card -----------------------------
@@ -3290,11 +3339,6 @@ def synth_recipe_smoke(dev, card):
         os.rmdir(prj)
     check("wav" not in prj, f"project dir {prj} must not contain 'wav'")
     dv, spk = dev.type, SR_SPK
-    stand_in = _install_h5_stand_in()
-    io_note = ""
-    if stand_in:
-        os.environ[H5_STAND_IN_ENV] = "1"
-        io_note = " (h5 files through the h5py stand-in: pickle, not HDF5)"
     prev_prj = os.environ.get("QPNET_PRJ_DIR")
     os.environ["QPNET_PRJ_DIR"] = prj      # as run_synth.sh exports it
     corpus = os.path.join(prj, "corpus", "SYNTH")
@@ -3460,8 +3504,6 @@ def synth_recipe_smoke(dev, card):
             os.environ.pop("QPNET_PRJ_DIR", None)
         else:
             os.environ["QPNET_PRJ_DIR"] = prev_prj
-        if stand_in:
-            del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
 
     n_k1 = sum(launches.values())
     phase("run_synth", f"corpus {audio['synthtr']:.3f} s of training and "
@@ -3488,7 +3530,7 @@ def synth_recipe_smoke(dev, card):
         f"{k} {walls[k]:.3f} ({peaks[k]:.1f})" for k in walls)
         + f"; SI training {walls['runQP -1'] * 1e3 / int(SR_ITERS):.3f} ms "
         f"per iteration (CLI wall over {SR_ITERS} iterations, start-up and "
-        f"h5 reads included){io_note} | {card}")
+        f"h5 reads included) | {card}")
     phase("run_synth", f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
     return n_k1, wk_fe
 
@@ -3501,7 +3543,6 @@ DP_ITERS = 4
 DP_WORKER = """
 import json, sys, time
 sys.path.insert(0, {root!r})
-import chip_smoke  # noqa: F401  (the h5py stand-in, where h5py is missing)
 import torch
 from qpnet_tpu_torch.bin import qpnet_train
 from qpnet_tpu_torch.ops import train_kernel as TK
@@ -3736,9 +3777,6 @@ def dp_train_smoke(card, step_ms):
     from qpnet_tpu_torch.config import ModelConfig
     cfg = ModelConfig()
     tmp = tempfile.mkdtemp(prefix="qp18_")
-    stand_in = _install_h5_stand_in()
-    if stand_in:
-        os.environ[H5_STAND_IN_ENV] = "1"
     try:
         wav_scp, feat_scp, stats = _dp_corpus(tmp, cfg)
         expdir = os.path.join(tmp, "exp")
@@ -3821,8 +3859,6 @@ def dp_train_smoke(card, step_ms):
                                           "at iteration 4")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-        if stand_in:
-            del os.environ[H5_STAND_IN_ENV], sys.modules["h5py"]
     return k2
 
 
