@@ -1,0 +1,10 @@
+"""The share of the traced stretch's wall in which no operation ran on
+the card (torch.profiler: kernels, copies and sets), in %; only in the
+serve cells."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.device or \
+            "serve_samples" not in run.counts:
+        return None
+    return run.trace.idle_share()
