@@ -1386,11 +1386,10 @@ SCAN_F32_TOL = 1e-4          # f32 scan against the f32 forward, of scale
 
 
 def peak_mib(dev) -> float:
-    """Peak device memory (MiB) since the last reset, from the profiler's
-    snapshot (`torch.cuda.max_memory_allocated`)."""
-    from qpnet_tpu_torch.utils.profiler import device_memory_stats
-    stats = device_memory_stats()[f"cuda:{dev.index or 0}"]
-    return stats["peak_bytes_in_use"] / 2 ** 20
+    """Peak device memory (MiB) since the last reset
+    (`torch.cuda.max_memory_allocated`)."""
+    import torch
+    return torch.cuda.max_memory_allocated(dev.index or 0) / 2 ** 20
 
 
 def median_ms(fn, calls=5):

@@ -35,8 +35,8 @@ training on one host and on many; ROADMAP.md lists the rest).
   bin/        the decode, serve, train, update and validate CLIs, and the
               feature-pipeline workers
   tools/      reference-checkpoint conversion, the serving soak
-  utils/      logging, the worker pool, profiler hooks and device memory
-              snapshots
+  utils/      logging, the worker pool, the tracing (spans, counters and
+              torch.profiler traces)
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,9 @@ them, seeds with a single mu-law zero, optionally scales F0 (recomputing the
 pitch-dependent dilation factors from the scaled track), generates through
 the CUDA generation kernel or the scan engine (--engine, --quantize,
 --dtype), then mu-law-decodes and writes int16 wavs into the `feat_id` path
-template.  Same argv as `qpnet_tpu.bin.qpnet_decode`, plus --device.
+template.  Same argv as `qpnet_tpu.bin.qpnet_decode`, plus --device and
+--trace_dir (a torch.profiler trace of the decoding, the port's spans
+beside the card's kernels, for a short list: it keeps every kernel).
 --n_devices N shards each batch over the first N cards (one thread per
 card; through the kernel the output equals one card's bit for bit,
 through the scan engine on cards only to rounding), and
@@ -18,6 +20,7 @@ list.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import math
 import os
@@ -30,7 +33,7 @@ from qpnet_tpu_torch.config import RunConfig
 from qpnet_tpu_torch.data import find_files, read_hdf5, read_txt, shape_hdf5
 from qpnet_tpu_torch.data.stats import load_scaler
 from qpnet_tpu_torch.ops import decode_mu_law, dilated_factor, encode_mu_law
-from qpnet_tpu_torch.utils import set_loglevel
+from qpnet_tpu_torch.utils import profiler, set_loglevel
 
 
 def strtobool(v: str) -> bool:
@@ -90,6 +93,10 @@ def get_arguments(argv=None):
                              "bf16 by construction")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="cpu runs the kernel's plain PyTorch twin")
+    parser.add_argument("--trace_dir", default=None, type=str,
+                        help="write a Chrome trace of the decoding (host "
+                             "ops, kernels and the spans of "
+                             "utils.profiler) into this directory")
     return parser.parse_args(argv)
 
 
@@ -194,20 +201,24 @@ def main(argv=None):
     if mesh is not None:
         logging.info("decoding over a %d-device mesh", mesh.size)
 
-    for feat_ids, x, h, n_samples, d in decode_batches(
-            feat_list, run_cfg, args, scaler):
-        logging.info("decoding start! (batch of %d)", len(feat_ids))
-        samples_list = batch_fast_generate(
-            params, cfg, x, h, n_samples, d, seed=args.seed, mode=args.mode,
-            compute_dtype=getattr(torch, args.dtype), engine=args.engine,
-            quantize=args.quantize, device=args.device, mesh=mesh)
-        for feat_id, samples in zip(feat_ids, samples_list):
-            wav = decode_mu_law(samples, cfg.n_quantize)
-            wav_filename = wav_path(feat_id)
-            os.makedirs(os.path.dirname(wav_filename) or ".", exist_ok=True)
-            wav = np.clip(wav * 32768, -32768, 32767)
-            wavfile.write(wav_filename, args.fs, wav.astype(np.int16))
-            logging.info("wrote %s.", wav_filename)
+    with (profiler.trace(args.trace_dir) if args.trace_dir
+          else contextlib.nullcontext()):
+        for feat_ids, x, h, n_samples, d in decode_batches(
+                feat_list, run_cfg, args, scaler):
+            logging.info("decoding start! (batch of %d)", len(feat_ids))
+            samples_list = batch_fast_generate(
+                params, cfg, x, h, n_samples, d, seed=args.seed,
+                mode=args.mode, compute_dtype=getattr(torch, args.dtype),
+                engine=args.engine, quantize=args.quantize,
+                device=args.device, mesh=mesh)
+            for feat_id, samples in zip(feat_ids, samples_list):
+                wav = decode_mu_law(samples, cfg.n_quantize)
+                wav_filename = wav_path(feat_id)
+                os.makedirs(os.path.dirname(wav_filename) or ".",
+                            exist_ok=True)
+                wav = np.clip(wav * 32768, -32768, 32767)
+                wavfile.write(wav_filename, args.fs, wav.astype(np.int16))
+                logging.info("wrote %s.", wav_filename)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ from qpnet_tpu_torch.config import ModelConfig
 from qpnet_tpu_torch.data.lists import check_filenames
 from qpnet_tpu_torch.ops import (batch_f0, dilated_factor, encode_mu_law,
                                  extend_time)
+from qpnet_tpu_torch.utils import profiler
 
 
 class BackgroundGenerator(threading.Thread):
@@ -123,7 +124,9 @@ def window_batches(
       {"x": (B, Tp) i32, "h": (B, Tp/up, A) f32, "t": (B, Tp) i32,
        "d": (B, Tp) f32, "valid_len": i32 scalar, "window_lens": (B,) i32}
     where Tp = padded_shape(max_length, up).  d comes from the raw features'
-    F0 column; `feat_transform` (the scaler) applies to h only.
+    F0 column; `feat_transform` (the scaler) applies to h only.  The time
+    from resuming to each yield, reading the utterances included, is the
+    span batch.window (on the thread that iterates: `background`'s).
     """
     up = cfg.upsampling_factor
     dense = cfg.dense_factor
@@ -133,6 +136,7 @@ def window_batches(
     h_buffer: Optional[np.ndarray] = None
     d_buffer = np.empty((0,), np.float64)
     batch: List[tuple] = []
+    window = profiler.begin("batch.window")
     for fs, x, h in utterances:
         x, h = validate_length(x, h, up)
         d = dilated_factor(batch_f0(h, f0_threshold), fs, dense)
@@ -183,7 +187,7 @@ def window_batches(
             if len(batch) == batch_size:
                 bls = [b[4] for b in batch]
                 # every window of a batch shares valid_len: the minimum
-                yield {
+                out = {
                     "x": np.stack([b[0] for b in batch]),
                     "h": np.stack([b[1] for b in batch]),
                     "t": np.stack([b[2] for b in batch]),
@@ -193,6 +197,9 @@ def window_batches(
                     # trainer drops this before the device step)
                     "window_lens": np.asarray(bls, np.int32),
                 }
+                profiler.end(window)
+                yield out
+                window = profiler.begin("batch.window")
                 batch = []
 
 

@@ -39,6 +39,7 @@ from qpnet_tpu_torch.models.qpnet import (
     resolve_device, round_look_back, upsample_aux,
 )
 from qpnet_tpu_torch.ops import gen_kernel
+from qpnet_tpu_torch.utils import profiler
 
 MAXD_BUCKETS = (1, 2, 4, 8, 16, 32, 48, 64, 96, 128)
 
@@ -139,13 +140,15 @@ def _kernel_state(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
 def _prologue(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
               h_pad0: torch.Tensor, maxd: int, const_seed: bool,
               quantize: str = "none"):
-    """Weight packing and ring priming: (packed, bufF0, bufA0, x0) in the
-    kernel's layout.  h_pad0: (B, >= n_aux) first frame of the kernel's
-    aux input."""
-    packed = gen_kernel.pack_weights(params, cfg, quantize)
-    return (packed, *_kernel_state(params, cfg, x_seed,
-                                   h_pad0[:, :cfg.n_aux].float(), maxd,
-                                   const_seed))
+    """Weight packing and ring priming (the spans decode.pack and
+    decode.prime): (packed, bufF0, bufA0, x0) in the kernel's layout.
+    h_pad0: (B, >= n_aux) first frame of the kernel's aux input."""
+    with profiler.span("decode.pack"):
+        packed = gen_kernel.pack_weights(params, cfg, quantize)
+    with profiler.span("decode.prime"):
+        return (packed, *_kernel_state(params, cfg, x_seed,
+                                       h_pad0[:, :cfg.n_aux].float(), maxd,
+                                       const_seed))
 
 
 def _pallas_host_prep(cfg: ModelConfig, h: np.ndarray, d: np.ndarray,
@@ -184,28 +187,34 @@ def _pallas_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
     whole (contiguous, the last row repeated as padding).  The shard primes
     the whole batch, as one call over it does (the priming's products may
     round otherwise at another batch size), takes its rows' rings, and
-    keys the sampling hash off its first row's global index."""
-    params = params_to(params, device)
-    h0 = torch.from_numpy(np.ascontiguousarray(h[:, 0])).to(
-        device=device, dtype=torch.bfloat16)   # the kernel's aux: bf16
-    packed, bufF, bufA, x0 = _prologue(
-        params, cfg, torch.as_tensor(x_seed, dtype=torch.int64,
-                                     device=device),
-        h0, maxd, const_seed, quantize)
-    b_offset = 0
-    if rows is not None:
-        idx = torch.as_tensor(rows, device=device)
-        bufF, bufA, x0 = (t.index_select(1, idx).contiguous()
-                          for t in (bufF, bufA, x0))
-        h, d, b_offset = h[rows], d[rows], int(rows[0])
-    B = h.shape[0]
-    h_pad, d_frames, n_pad_steps = _pallas_host_prep(cfg, h, d, n_steps,
-                                                     device)
-    xf = None
-    if mode == "forced":
-        xf_np = np.zeros((n_pad_steps, 1, B), np.int32)
-        xf_np[:n_steps, 0, :] = np.asarray(x_forced, np.int32).T
-        xf = torch.from_numpy(xf_np).to(device)
+    keys the sampling hash off its first row's global index.
+
+    Spans: decode.prep up to the first kernel call (decode.pack,
+    decode.prime, decode.host_prep with the uploads), a k1.generate a
+    chunk, decode.copy_back."""
+    with profiler.span("decode.prep"):
+        params = params_to(params, device)
+        h0 = torch.from_numpy(np.ascontiguousarray(h[:, 0])).to(
+            device=device, dtype=torch.bfloat16)   # the kernel's aux: bf16
+        packed, bufF, bufA, x0 = _prologue(
+            params, cfg, torch.as_tensor(x_seed, dtype=torch.int64,
+                                         device=device),
+            h0, maxd, const_seed, quantize)
+        b_offset = 0
+        if rows is not None:
+            idx = torch.as_tensor(rows, device=device)
+            bufF, bufA, x0 = (t.index_select(1, idx).contiguous()
+                              for t in (bufF, bufA, x0))
+            h, d, b_offset = h[rows], d[rows], int(rows[0])
+        B = h.shape[0]
+        with profiler.span("decode.host_prep"):
+            h_pad, d_frames, n_pad_steps = _pallas_host_prep(
+                cfg, h, d, n_steps, device)
+            xf = None
+            if mode == "forced":
+                xf_np = np.zeros((n_pad_steps, 1, B), np.int32)
+                xf_np[:n_steps, 0, :] = np.asarray(x_forced, np.int32).T
+                xf = torch.from_numpy(xf_np).to(device)
     up = cfg.upsampling_factor
     chunk_steps = DECODE_CHUNK_FRAMES * up
     pieces = []
@@ -222,10 +231,11 @@ def _pallas_path(params: Params, cfg: ModelConfig, x_seed: np.ndarray,
             out = out.to(torch.uint8)  # quarters the device-to-host copy
         pieces.append(out)
         off += steps
-    out = torch.cat(pieces).cpu().numpy()
-    if mode == "forced":
-        return out[:n_steps]
-    return np.moveaxis(out.astype(np.int32)[:, 0, :], 0, 1)[:, :n_steps]
+    with profiler.span("decode.copy_back"):
+        out = torch.cat(pieces).cpu().numpy()
+        if mode == "forced":
+            return out[:n_steps]
+        return np.moveaxis(out.astype(np.int32)[:, 0, :], 0, 1)[:, :n_steps]
 
 
 def _frame_constant(d: np.ndarray, up: int) -> bool:
@@ -572,36 +582,42 @@ def batch_fast_generate(params: Params, cfg: ModelConfig,
     then not used), one thread per shard (`_mesh_path`).  Through the
     kernel the output equals one device's bit for bit; through the scan on
     a card, only to rounding (`_scan_path`).
+
+    Recorded as the span decode.call; the kernel engine on one device
+    records its parts inside it (`_pallas_path`).
     """
-    device = resolve_device(device) if mesh is None else None
     n_steps = int(max(n_samples_list))
-    maxd, x_seed, d_gen = _seed_and_d(cfg, x, d, n_steps)
-    scan = _use_scan(engine, quantize, d_gen, cfg.upsampling_factor)
-    const_seed = x.shape[1] <= 1
-    if not const_seed:
-        logging.warning(
-            "batch_fast_generate: %d-sample seed history primes with "
-            "replicated first-frame aux and d=1 (not the true history "
-            "track); outputs near the seed boundary deviate from the "
-            "reference's continuation semantics", x.shape[1])
-    h = np.asarray(h, np.float32)
+    with profiler.span("decode.call", B=len(n_samples_list), n_steps=n_steps,
+                       engine=engine, quantize=quantize) as call:
+        device = resolve_device(device) if mesh is None else None
+        maxd, x_seed, d_gen = _seed_and_d(cfg, x, d, n_steps)
+        scan = _use_scan(engine, quantize, d_gen, cfg.upsampling_factor)
+        call.attrs["engine"] = "xla" if scan else "pallas"
+        const_seed = x.shape[1] <= 1
+        if not const_seed:
+            logging.warning(
+                "batch_fast_generate: %d-sample seed history primes with "
+                "replicated first-frame aux and d=1 (not the true history "
+                "track); outputs near the seed boundary deviate from the "
+                "reference's continuation semantics", x.shape[1])
+        h = np.asarray(h, np.float32)
 
-    def run(dev, rows=None):
-        if scan:
-            return _scan_path(params, cfg, x_seed, h, d_gen, n_steps, maxd,
-                              seed, mode, compute_dtype, quantize, const_seed,
-                              dev, rows=rows)
-        return _pallas_path(params, cfg, x_seed, h, d_gen, n_steps, maxd,
-                            seed, mode, const_seed=const_seed, device=dev,
-                            quantize=quantize, rows=rows)
+        def run(dev, rows=None):
+            if scan:
+                return _scan_path(params, cfg, x_seed, h, d_gen, n_steps,
+                                  maxd, seed, mode, compute_dtype, quantize,
+                                  const_seed, dev, rows=rows)
+            return _pallas_path(params, cfg, x_seed, h, d_gen, n_steps,
+                                maxd, seed, mode, const_seed=const_seed,
+                                device=dev, quantize=quantize, rows=rows)
 
-    if mesh is None:
-        samples = run(device)
-    else:
-        logging.info("batch_fast_generate: %d rows over a %d-shard mesh",
-                     h.shape[0], mesh.size)
-        samples = _mesh_path(mesh, run, h.shape[0])
-    return [samples[i, :n] for i, n in enumerate(n_samples_list)]
+        if mesh is None:
+            samples = run(device)
+        else:
+            logging.info("batch_fast_generate: %d rows over a %d-shard mesh",
+                         h.shape[0], mesh.size)
+            samples = _mesh_path(mesh, run, h.shape[0])
+        return [samples[i, :n] for i, n in enumerate(n_samples_list)]
 
 
 def teacher_forced_logits(params: Params, cfg: ModelConfig,
@@ -705,7 +721,9 @@ class StreamingGenerator:
     def feed(self, h_frames: np.ndarray, d_frames: np.ndarray) -> np.ndarray:
         """h_frames: (B, F, n_aux) standardized aux; d_frames: (B, F)
         dilation factors, F >= 1.  Returns (B, F*up) int32 mu-law samples,
-        copied to the host (which waits for the card)."""
+        copied to the host (which waits for the card).  Spans: gen.prime
+        (the first feed of a group), gen.upload, k1.generate and
+        gen.copy_back."""
         cfg, B = self.cfg, self.B
         h_frames = np.asarray(h_frames, np.float32)
         d_frames = np.asarray(d_frames, np.float32)
@@ -725,14 +743,17 @@ class StreamingGenerator:
         h_pad[:, :, :cfg.n_aux] = np.moveaxis(h_frames, 0, 1)
         d_pad = np.moveaxis(d_frames, 0, 1)[:, None, :].copy()
         if self._state is None:
-            self._prime(h_frames[:, 0])
+            with profiler.span("gen.prime"):
+                self._prime(h_frames[:, 0])
+        with profiler.span("gen.upload"):
+            h_dev = torch.from_numpy(h_pad).to(self.device, torch.bfloat16)
+            d_dev = torch.from_numpy(d_pad).to(self.device)
         n_steps = F * cfg.upsampling_factor
         samples, *state = gen_kernel.generate(
-            self._packed, cfg, *self._state,
-            torch.from_numpy(h_pad).to(self.device, torch.bfloat16),
-            torch.from_numpy(d_pad).to(self.device), self.seed, B=B,
+            self._packed, cfg, *self._state, h_dev, d_dev, self.seed, B=B,
             maxd=self.maxd, n_steps=n_steps, mode=self.mode,
             step_offset=self._offset, quantize=self._kq)
         self._state = tuple(state)
         self._offset += n_steps
-        return samples[:, 0, :].T.cpu().numpy()
+        with profiler.span("gen.copy_back"):
+            return samples[:, 0, :].T.cpu().numpy()

@@ -30,30 +30,33 @@ chunked or batch-split run gives the same bits as one call.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from qpnet_tpu_torch.config import ModelConfig
+from qpnet_tpu_torch.utils import profiler
 
 AUX_PAD = 48   # aux depth of the packed W_aux and of h_frames (zero-padded)
 MODES = {"argmax": 0, "sampling": 1, "forced": 2}
 QUANTIZE = {"none": 0, "w8a8": 1}
 
 # kernel launches made through `generate` (one per call on a CUDA tensor),
-# bf16 and w8a8 apart; serving calls it from a thread per device
-launch_count = 0
-w8a8_launch_count = 0
-_count_lock = threading.Lock()
+# bf16 and w8a8 apart, are the registry's counters k1.launch.bf16 and
+# k1.launch.w8a8; `launch_count` and `w8a8_launch_count` read them
+_COUNTERS = {"launch_count": "k1.launch.bf16",
+             "w8a8_launch_count": "k1.launch.w8a8"}
+
+
+def __getattr__(name: str):
+    if name in _COUNTERS:
+        return profiler.counters().get(_COUNTERS[name], 0)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def reset_launch_count() -> None:
-    global launch_count, w8a8_launch_count
-    with _count_lock:
-        launch_count = 0
-        w8a8_launch_count = 0
+    profiler.reset_counters("k1.launch.")
 
 
 def _q8(w: torch.Tensor):
@@ -427,12 +430,22 @@ def generate(packed: Dict[str, Any], cfg: ModelConfig,
     "w8a8", as `packed` was packed.
     Returns (samples (n_steps, 1, B) int32 — or logits (n_steps, B, Q) f32
     in forced mode — bufF, bufA, x): the state after the last step, from
-    which a following chunk continues exactly.
+    which a following chunk continues exactly.  Recorded as the span
+    k1.generate (on a card: the checks, ring clones, scratch and the
+    enqueue; on a CPU device: the twin's whole run).
     """
-    if bufF0.device.type == "cpu":
-        return generate_reference(packed, cfg, bufF0, bufA0, x0, h_frames,
-                                  d_frames, seed, B, maxd, n_steps, mode,
-                                  step_offset, b_offset, x_forced, quantize)
+    args = (packed, cfg, bufF0, bufA0, x0, h_frames, d_frames, seed, B,
+            maxd, n_steps, mode, step_offset, b_offset, x_forced, quantize)
+    with profiler.span("k1.generate", B=B, n_steps=n_steps,
+                       quantize=quantize):
+        if bufF0.device.type == "cpu":
+            return generate_reference(*args)
+        return _launch(*args)
+
+
+def _launch(packed, cfg, bufF0, bufA0, x0, h_frames, d_frames, seed, B,
+            maxd, n_steps, mode, step_offset, b_offset, x_forced, quantize):
+    """`generate` on CUDA tensors: one call of `qp_generate`."""
     if bufF0.device.type != "cuda":
         raise ValueError(f"generate runs on CUDA or CPU tensors, got "
                          f"{bufF0.device}")
@@ -489,10 +502,6 @@ def generate(packed: Dict[str, Any], cfg: ModelConfig,
             stream)
     if err != 0:
         raise RuntimeError(f"gen_kernel launch failed: CUDA error {err}")
-    global launch_count, w8a8_launch_count
-    with _count_lock:
-        if quantize == "w8a8":
-            w8a8_launch_count += 1
-        else:
-            launch_count += 1
+    profiler.count("k1.launch.w8a8" if quantize == "w8a8"
+                   else "k1.launch.bf16")
     return out, bufF, bufA, x

@@ -41,12 +41,14 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from qpnet_tpu_torch.utils import profiler
+
 AUX_PAD = 48
 
 # kernel launches made through `stack_forward` / `stack_backward` (one per
-# call on CUDA tensors)
-fwd_launch_count = 0
-bwd_launch_count = 0
+# call on CUDA tensors) are the registry's counters k2.fwd and k2.bwd;
+# `fwd_launch_count` and `bwd_launch_count` read them
+_COUNTERS = {"fwd_launch_count": "k2.fwd", "bwd_launch_count": "k2.bwd"}
 
 # the backward's weight gradients sum over all B*T rows in this many row
 # ranges, whose partial sums are added in order (deterministic): 11 ranges
@@ -61,10 +63,14 @@ BWD_SPLITS = 11
 GATE_HALF = 64
 
 
+def __getattr__(name: str):
+    if name in _COUNTERS:
+        return profiler.counters().get(_COUNTERS[name], 0)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 def reset_launch_counts() -> None:
-    global fwd_launch_count, bwd_launch_count
-    fwd_launch_count = 0
-    bwd_launch_count = 0
+    profiler.reset_counters("k2.")
 
 
 def _unpack(static):
@@ -335,8 +341,7 @@ def _launch_fwd(static, dtype, weights, o0, h_up, d_frames):
             int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"train_kernel forward failed: CUDA error {err}")
-    global fwd_launch_count
-    fwd_launch_count += 1
+    profiler.count("k2.fwd")
     return o_out, skip, oall, st
 
 
@@ -388,8 +393,7 @@ def _launch_bwd(static, dtype, weights, oall, st, h_up, d_frames, do, dskip):
             stream)
     if err != 0:
         raise RuntimeError(f"train_kernel backward failed: CUDA error {err}")
-    global bwd_launch_count
-    bwd_launch_count += 1
+    profiler.count("k2.bwd")
     return dwork, dh, {"W_in": dW_cat[:, : 2 * R], "W_aux": dW_cat[:, 2 * R:],
                        "b_gate": db_gate, "W_out": dW_out, "b_res": db_res}
 

@@ -42,9 +42,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import threading
 
 import torch
+
+from qpnet_tpu_torch.utils import profiler
 
 KERNELS = ("pool", "viterbi", "fix_contour", "smooth")
 MAX_POOL = 255     # W1: the most candidates a frame keeps (harvest's K)
@@ -66,25 +67,16 @@ VITERBI_BACK_SMEM = 81920
 SMOOTH_THREADS = 256   # W4: threads a block
 SMOOTH_R = 4           # W4: consecutive bins an item (a thread's group)
 
-# kernel launches made through the wrappers, one per call on CUDA tensors;
-# the analysis may run in a thread per device
-launch_counts = dict.fromkeys(KERNELS, 0)
-_count_lock = threading.Lock()
+# kernel launches made through the wrappers, one per call on CUDA tensors,
+# are the registry's counters world.<kernel>
 
 
 def launch_count(name: str) -> int:
-    return launch_counts[name]
+    return profiler.counters().get(f"world.{name}", 0)
 
 
 def reset_launch_count() -> None:
-    with _count_lock:
-        for k in KERNELS:
-            launch_counts[k] = 0
-
-
-def _counted(name: str) -> None:
-    with _count_lock:
-        launch_counts[name] += 1
+    profiler.reset_counters("world.")
 
 
 def viterbi_lanes(S: int) -> int:
@@ -391,7 +383,7 @@ def _launch(name: str, fn, dev, *args) -> None:
     if err != 0:
         raise RuntimeError(f"world_kernel {name} launch failed: CUDA error "
                            f"{err}")
-    _counted(name)
+    profiler.count(f"world.{name}")
 
 
 def check_pool(f_shape, sp_shape, K: int) -> None:

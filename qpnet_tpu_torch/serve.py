@@ -19,6 +19,12 @@ ported from `qpnet_tpu/serve.py`.
 
 The synthesis is `StreamingGenerator`'s: on a CUDA device, the generation
 kernel (bf16 or w8a8); on a CPU device, its plain twin.
+
+Spans (`utils.profiler`), those of one stream tagged with its handle's
+`rid`: serve.queue from `submit` to its group and a serve.write a chunk on
+its connection's thread; the scheduler's serve.gather (its idle device
+holding a request), and serve.group with serve.session_build and a
+serve.feed a feed.
 """
 
 from __future__ import annotations
@@ -40,13 +46,16 @@ from qpnet_tpu_torch.models.generate import (StreamingGenerator,
                                              check_streaming_quantize)
 from qpnet_tpu_torch.models.qpnet import resolve_device
 from qpnet_tpu_torch.ops.mulaw import decode_mu_law
+from qpnet_tpu_torch.utils import profiler
 
 
 class StreamHandle:
-    """Per-request output stream: an iterator of (n,) int32 mu-law chunks."""
+    """Per-request output stream: an iterator of (n,) int32 mu-law chunks.
+    `rid` tags the request's spans in `utils.profiler`."""
 
-    def __init__(self, n_samples: int):
+    def __init__(self, n_samples: int, rid: int):
         self.n_samples = n_samples
+        self.rid = rid
         self._q: "queue.Queue[Optional[np.ndarray]]" = queue.Queue()
         self.error: Optional[Exception] = None
         self._cancelled = threading.Event()
@@ -81,11 +90,12 @@ class StreamHandle:
 
 
 class _Request:
-    def __init__(self, h: np.ndarray, d: np.ndarray, up: int):
+    def __init__(self, h: np.ndarray, d: np.ndarray, up: int, rid: int):
         self.h = np.asarray(h, np.float32)          # (F, n_aux)
         self.d = np.asarray(d, np.float32)          # (F,)
-        self.handle = StreamHandle(self.h.shape[0] * up)
-        self.t_arrival = time.monotonic()
+        self.handle = StreamHandle(self.h.shape[0] * up, rid)
+        self.queued: Optional[profiler.Open] = None  # span serve.queue
+        self.t_arrival = 0.0                        # perf_counter seconds
 
 
 class StreamingService:
@@ -185,7 +195,8 @@ class StreamingService:
         """h: (F, n_aux) standardized aux frames; d: (F,) dilation factors
         (already F0-scaled as in qpnet_decode).  Returns the output handle
         at once.  Raises RuntimeError when the service is closed or
-        `max_pending` requests are already queued."""
+        `max_pending` requests are already queued.  The handle's `rid` tags
+        the request's spans; its wait in the queue is the span serve.queue."""
         h = np.asarray(h, np.float32)
         d = np.asarray(d, np.float32)
         if h.ndim != 2 or h.shape[1] != self.cfg.n_aux:
@@ -198,7 +209,7 @@ class StreamingService:
         if float(d.max(initial=0.0)) > self.maxd:
             raise ValueError(f"dilation factor {float(d.max()):.1f} exceeds "
                              f"the service maxd={self.maxd}")
-        req = _Request(h, d, self.cfg.upsampling_factor)
+        req = _Request(h, d, self.cfg.upsampling_factor, profiler.new_rid())
         with self._cv:
             if self._closed:
                 raise RuntimeError("service is closed")
@@ -207,7 +218,8 @@ class StreamingService:
                 raise RuntimeError(
                     f"service overloaded: {len(self._pending)} requests "
                     f"already queued (max_pending={self.max_pending})")
-            req.t_arrival = time.monotonic()
+            req.queued = profiler.begin("serve.queue", rid=req.handle.rid)
+            req.t_arrival = req.queued.t0_ns / 1e9
             self._last_arrival = req.t_arrival
             self._pending.append(req)
             self._cv.notify()
@@ -233,21 +245,28 @@ class StreamingService:
 
     # ---- scheduler ----
 
-    def _take_group(self) -> Optional[List[_Request]]:
+    def _take_group(self) -> Optional[Tuple[int, List[_Request]]]:
+        """(group index, requests), or None once closed and drained.  The
+        span serve.gather is the time this idle device held a pending
+        request before dispatching."""
         with self._cv:
             # This thread being here means its device is idle: dispatch when
             # the group is full, arrivals went quiet for gather_quiet_s, the
             # oldest request has waited gather_window_s, or the service is
             # closing.  Threads of other devices race on the same queue, so
             # emptiness is checked again after every wait.
+            gather = None
             while True:
                 while not self._pending and not self._closed:
+                    gather = None                     # another device took it
                     self._cv.wait()
                 if not self._pending:
                     return None                       # closed and drained
+                if gather is None:
+                    gather = profiler.begin("serve.gather")
                 if self._closed or len(self._pending) >= self.max_streams:
                     break
-                now = time.monotonic()
+                now = time.perf_counter()
                 deadline = min(
                     self._pending[0].t_arrival + self.gather_window_s,
                     self._last_arrival + self.gather_quiet_s)
@@ -256,94 +275,116 @@ class StreamingService:
                 self._cv.wait(deadline - now)
             # requests cancelled while queued never reach a kernel
             live = [r for r in self._pending if not r.handle.cancelled]
+            for r in self._pending:
+                if r.handle.cancelled:
+                    profiler.end(r.queued, cancelled=True)
             self.stats["streams_cancelled"] += (len(self._pending)
                                                 - len(live))
             self._pending = live
             group = self._pending[: self.max_streams]
             del self._pending[: len(group)]
-            return group
+            gidx = self._groups
+            if group:
+                self._groups += 1
+            for r in group:
+                profiler.end(r.queued, group=gidx)
+            profiler.end(gather, group=gidx, streams=len(group))
+            return gidx, group
 
     def _scheduler(self, device, sessions):
         while True:
-            group = self._take_group()
-            if group is None:
+            taken = self._take_group()
+            if taken is None:
                 return
+            gidx, group = taken
             if not group:                            # all arrivals cancelled
                 continue
             try:
-                self._run_group(group, sessions, device)
+                self._run_group(group, sessions, device, gidx)
             except Exception as e:  # noqa: BLE001 — report to all clients
                 logging.exception("stream group failed")
                 for req in group:
                     req.handle.error = e
                     req.handle._q.put(None)
 
-    def _run_group(self, group: List[_Request], sessions, device):
-        cfg = self.cfg
-        up = cfg.upsampling_factor
+    def _run_group(self, group: List[_Request], sessions, device,
+                   gidx: int):
+        """Stream the group through its bucket's session: the span
+        serve.group, with a serve.feed a feed."""
         B_real = len(group)
         B = 1 << (B_real - 1).bit_length()          # power-of-two bucket
-        with self._cv:
-            gidx = self._groups
-            self._groups += 1
-        sess = sessions.get(B)
-        if sess is None:
-            sess = self._make_session(B, device)
-            sessions[B] = sess
-        # the packed weights stay; fresh rings and a seed of its own
-        sess.reset(seed=self.seed + gidx)
-        Fc = sess.chunk_frames
-        F_max = max(r.h.shape[0] for r in group)
-        # an optional short first chunk, then nominal chunks
-        schedule = []
-        if self.first_chunk_samples > 0:
-            schedule.append(min(F_max, max(1, -(-self.first_chunk_samples
-                                               // up))))
-        start = sum(schedule)
-        while start < F_max:
-            schedule.append(Fc)
-            start += Fc
-        done = [0] * B_real                          # samples emitted so far
-        start = 0
-        with self._cv:
-            self.stats["groups"] += 1
-        for L in schedule:
-            # once every stream is complete or cancelled, the rest of the
-            # schedule is padding: stop and hand the device back
-            if all(r.handle.cancelled or done[i] >= r.handle.n_samples
-                   for i, r in enumerate(group)):
-                break
-            h_blk = np.zeros((B, L, cfg.n_aux), np.float32)
-            d_blk = np.ones((B, L), np.float32)
-            for i, r in enumerate(group):
-                sl = r.h[start: start + L]
-                h_blk[i, : len(sl)] = sl
-                d_blk[i, : len(sl)] = r.d[start: start + L]
-                if 0 < len(sl) < L:
-                    h_blk[i, len(sl):] = sl[-1]      # repeat-last padding
-                    d_blk[i, len(sl):] = r.d[start + len(sl) - 1]
-                elif len(sl) == 0:                   # stream already done
-                    h_blk[i] = r.h[-1]
-                    d_blk[i] = r.d[-1]
-            out = sess.feed(h_blk, d_blk)            # (B, L*up) int32, host
-            start += L
+        with profiler.span("serve.group", group=gidx, streams=B_real,
+                           bucket=B, built=B not in sessions):
+            cfg = self.cfg
+            up = cfg.upsampling_factor
+            sess = sessions.get(B)
+            if sess is None:
+                # prewarm() missed this bucket: the group waits for the build
+                profiler.count("serve.session_builds")
+                with profiler.span("serve.session_build", bucket=B):
+                    sess = self._make_session(B, device)
+                sessions[B] = sess
+            # the packed weights stay; fresh rings and a seed of its own
+            sess.reset(seed=self.seed + gidx)
+            Fc = sess.chunk_frames
+            F_max = max(r.h.shape[0] for r in group)
+            # an optional short first chunk, then nominal chunks
+            schedule = []
+            if self.first_chunk_samples > 0:
+                schedule.append(min(F_max, max(1, -(-self.first_chunk_samples
+                                                   // up))))
+            start = sum(schedule)
+            while start < F_max:
+                schedule.append(Fc)
+                start += Fc
+            done = [0] * B_real                      # samples emitted so far
+            start = 0
             with self._cv:
-                self.stats["feeds"] += 1
-            for i, r in enumerate(group):
-                if r.handle.cancelled:
-                    continue
-                take = min(r.handle.n_samples - done[i], out.shape[1])
-                if take > 0:
-                    r.handle._q.put(out[i, :take].copy())
-                    done[i] += take
-        with self._cv:
-            for i, r in enumerate(group):
-                if r.handle.cancelled:
-                    self.stats["streams_cancelled"] += 1
-                else:
-                    self.stats["streams_done"] += 1
-        for r in group:
-            r.handle._q.put(None)
+                self.stats["groups"] += 1
+            for k, L in enumerate(schedule):
+                # once every stream is complete or cancelled, the rest of the
+                # schedule is padding: stop and hand the device back
+                if all(r.handle.cancelled or done[i] >= r.handle.n_samples
+                       for i, r in enumerate(group)):
+                    break
+                with profiler.span("serve.feed", index=k, frames=L):
+                    out = sess.feed(*self._block(group, B, L, start))
+                start += L
+                with self._cv:
+                    self.stats["feeds"] += 1
+                for i, r in enumerate(group):
+                    if r.handle.cancelled:
+                        continue
+                    take = min(r.handle.n_samples - done[i], out.shape[1])
+                    if take > 0:
+                        r.handle._q.put(out[i, :take].copy())
+                        done[i] += take
+            with self._cv:
+                for i, r in enumerate(group):
+                    if r.handle.cancelled:
+                        self.stats["streams_cancelled"] += 1
+                    else:
+                        self.stats["streams_done"] += 1
+            for r in group:
+                r.handle._q.put(None)
+
+    def _block(self, group: List[_Request], B: int, L: int, start: int):
+        """A feed's (h (B, L, n_aux), d (B, L)) from frame `start` of each
+        stream: repeat-last padding past a stream's end, rows past the
+        group's streams zero."""
+        h_blk = np.zeros((B, L, self.cfg.n_aux), np.float32)
+        d_blk = np.ones((B, L), np.float32)
+        for i, r in enumerate(group):
+            sl = r.h[start: start + L]
+            h_blk[i, : len(sl)] = sl
+            d_blk[i, : len(sl)] = r.d[start: start + L]
+            if 0 < len(sl) < L:
+                h_blk[i, len(sl):] = sl[-1]          # repeat-last padding
+                d_blk[i, len(sl):] = r.d[start + len(sl) - 1]
+            elif len(sl) == 0:                       # stream already done
+                h_blk[i] = r.h[-1]
+                d_blk[i] = r.d[-1]
+        return h_blk, d_blk
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +435,8 @@ def _read_json_line(rfile, what: str) -> dict:
 
 
 class _Handler(socketserver.StreamRequestHandler):
+    """One connection; a serve.write a chunk, with its stream's rid."""
+
     def handle(self):
         svc: StreamingService = self.server.service  # type: ignore[attr-defined]
         cfg = svc.cfg
@@ -431,12 +474,15 @@ class _Handler(socketserver.StreamRequestHandler):
         postfilter = (svc.postfilter_factory()
                       if svc.postfilter_factory else None)
         try:
-            for chunk in handle.chunks():
-                wav = decode_mu_law(chunk, cfg.n_quantize)
-                if postfilter is not None:           # e.g. noise restoration
-                    wav = postfilter.process(wav)
-                pcm = np.clip(wav * 32768, -32768, 32767).astype("<i2")
-                self.wfile.write(struct.pack("<I", len(pcm)) + pcm.tobytes())
+            for k, chunk in enumerate(handle.chunks()):
+                with profiler.span("serve.write", rid=handle.rid,
+                                   first=k == 0):
+                    wav = decode_mu_law(chunk, cfg.n_quantize)
+                    if postfilter is not None:       # e.g. noise restoration
+                        wav = postfilter.process(wav)
+                    pcm = np.clip(wav * 32768, -32768, 32767).astype("<i2")
+                    self.wfile.write(struct.pack("<I", len(pcm))
+                                     + pcm.tobytes())
             self.wfile.write(struct.pack("<I", 0))
         except OSError:
             # the client hung up mid-stream: stop generating for it

@@ -55,6 +55,7 @@ from qpnet_tpu_torch.train.step import (TrainState, batch_to_device,
                                         resolve_fixed_engine,
                                         shard_train_state, sharded_axes,
                                         tree_leaves)
+from qpnet_tpu_torch.utils import profiler
 from qpnet_tpu_torch.utils.yamlconf import read_loss_record, write_loss_record
 
 
@@ -158,7 +159,10 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
     returns the final state (parameters and optimizer on `device`).  Under
     a mesh the batches are this rank's host's, the device is the rank's,
     `tcfg.batch_size` is the global batch, and under tp the returned state
-    is this rank's shard."""
+    is this rank's shard.  Each iteration is the span train.step, with
+    train.next_batch, train.to_device, train.step_fn (the host's enqueue of
+    the step), train.log (the interval's mean loss, which waits for the
+    card) and train.save inside."""
     world = None
     if mesh is not None:
         from qpnet_tpu_torch.parallel import distributed as PD
@@ -246,12 +250,15 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
 
     def save(it):
         """The lead writes checkpoint-<it>; under tp the lead's tp group
-        gathers the shards first (every rank of it calls save)."""
-        params = gather_params(mesh, state.params)
-        opt_state = full_optimizer_state(mesh, state.opt_state, state.params)
-        if is_lead:
-            save_checkpoint(expdir, params, opt_state, it,
-                            weight_decay=tcfg.weight_decay)
+        gathers the shards first (every rank of it calls save).  The span
+        train.save."""
+        with profiler.span("train.save", iteration=it):
+            params = gather_params(mesh, state.params)
+            opt_state = full_optimizer_state(mesh, state.opt_state,
+                                             state.params)
+            if is_lead:
+                save_checkpoint(expdir, params, opt_state, it,
+                                weight_decay=tcfg.weight_decay)
 
     # losses stay on the device until the logging interval
     pending = []
@@ -262,60 +269,71 @@ def train_loop(cfg: ModelConfig, tcfg: TrainConfig, batches: Iterator[dict],
     trip_synced = False      # its OR over the ranks (rides the vl gather)
     try:
         for i in range(iterations, tcfg.iters):
-            batch_np = next(batches)
-            batch_np.pop("window_lens", None)
-            if world is not None:
-                # every rank masks the same positions; the one gather of
-                # the step also carries the preemption flag, sampled again
-                # here so a SIGTERM that lands now rides this step's gather
-                local_tripped = local_tripped or guard.signum is not None
-                vl, trip_synced = PD.global_min_and_any(
-                    batch_np["valid_len"], local_tripped)
-                batch = PD.make_global_batch(
-                    mesh, {k: batch_np[k] for k in ("x", "h", "t", "d")})
-                batch["valid_len"] = int(vl)
-                state, loss = step_fn(state, batch)
-            else:
-                batch = batch_to_device(batch_np, device)
-                state, loss = step_fn(state, batch,
-                                      maxd_bucket(batch_np["d"]))
-            pending.append(loss)
-            logged = (i + 1) % tcfg.intervals == 0
-            if logged:
-                avg = float(torch.stack(pending).mean())
-                sec = (time.time() - interval_start) / len(pending)
-                eta = int((tcfg.iters - (i + 1)) * sec)
-                logging.info("(iter:%d) average loss = %.6f (%.3f sec / "
-                             "batch) ETA %02d:%02d:%02d", i + 1, avg, sec,
-                             eta // 3600, (eta % 3600) // 60, eta % 60)
-                loss_record.append(avg)
-                pending = []
-            saved_here = (i + 1) % tcfg.checkpoint_interval == 0
-            if saved_here and writes:
-                # the dp replicas are equal: only the lead writes
-                t_save = time.time()
-                save(i + 1)
-                # checkpoint seconds do not count in the next sec/batch
-                interval_start += time.time() - t_save
-                if is_lead:
-                    logging.info("%d-iter checkpoint created.", i + 1)
-            if logged:
-                interval_start = time.time()
-            local_tripped = guard.tripped_after_step()
-            # ranks agree on the stop: one lone early exit would leave the
-            # others waiting in the next step's collectives
-            tripped = trip_synced if world is not None else local_tripped
-            if tripped and (i + 1) < tcfg.iters:
-                if writes and not saved_here:
+            with profiler.span("train.step", iteration=i):
+                with profiler.span("train.next_batch"):
+                    batch_np = next(batches)
+                batch_np.pop("window_lens", None)
+                if world is not None:
+                    # every rank masks the same positions; the one gather
+                    # of the step also carries the preemption flag, sampled
+                    # again here so a SIGTERM that lands now rides this
+                    # step's gather
+                    local_tripped = local_tripped or guard.signum is not None
+                    with profiler.span("train.to_device"):
+                        vl, trip_synced = PD.global_min_and_any(
+                            batch_np["valid_len"], local_tripped)
+                        batch = PD.make_global_batch(
+                            mesh, {k: batch_np[k] for k in ("x", "h", "t",
+                                                            "d")})
+                        batch["valid_len"] = int(vl)
+                    with profiler.span("train.step_fn"):
+                        state, loss = step_fn(state, batch)
+                else:
+                    with profiler.span("train.to_device"):
+                        batch = batch_to_device(batch_np, device)
+                    with profiler.span("train.step_fn"):
+                        state, loss = step_fn(state, batch,
+                                              maxd_bucket(batch_np["d"]))
+                pending.append(loss)
+                logged = (i + 1) % tcfg.intervals == 0
+                if logged:
+                    with profiler.span("train.log"):
+                        # waits for the card
+                        avg = float(torch.stack(pending).mean())
+                    sec = (time.time() - interval_start) / len(pending)
+                    eta = int((tcfg.iters - (i + 1)) * sec)
+                    logging.info("(iter:%d) average loss = %.6f (%.3f sec "
+                                 "/ batch) ETA %02d:%02d:%02d", i + 1, avg,
+                                 sec, eta // 3600, (eta % 3600) // 60,
+                                 eta % 60)
+                    loss_record.append(avg)
+                    pending = []
+                saved_here = (i + 1) % tcfg.checkpoint_interval == 0
+                if saved_here and writes:
+                    # the dp replicas are equal: only the lead writes
+                    t_save = time.time()
                     save(i + 1)
-                if is_lead:
-                    logging.warning(
-                        "preemption%s at iteration %d: checkpoint saved, "
-                        "exiting (resume with --resume auto)",
-                        f" (signal {guard.signum})" if guard.signum else "",
-                        i + 1)
-                    write_loss_record(flossyml, loss_record)
-                return state
+                    # checkpoint seconds do not count in the next sec/batch
+                    interval_start += time.time() - t_save
+                    if is_lead:
+                        logging.info("%d-iter checkpoint created.", i + 1)
+                if logged:
+                    interval_start = time.time()
+                local_tripped = guard.tripped_after_step()
+                # ranks agree on the stop: one lone early exit would leave
+                # the others waiting in the next step's collectives
+                tripped = trip_synced if world is not None else local_tripped
+                if tripped and (i + 1) < tcfg.iters:
+                    if writes and not saved_here:
+                        save(i + 1)
+                    if is_lead:
+                        logging.warning(
+                            "preemption%s at iteration %d: checkpoint saved,"
+                            " exiting (resume with --resume auto)",
+                            f" (signal {guard.signum})" if guard.signum
+                            else "", i + 1)
+                        write_loss_record(flossyml, loss_record)
+                    return state
     finally:
         guard.uninstall()
     if world is not None:

@@ -106,6 +106,25 @@ def test_cli_writes_the_librarys_wavs(expdir, tmp_path):
     assert n_checked == 3
 
 
+def test_cli_trace_dir_writes_the_decodings_spans(expdir, tmp_path):
+    """--trace_dir: a Chrome trace of the decoding, with a decode.call span
+    a batch beside the host ops, and the wavs written as without it."""
+    import json
+    out = str(tmp_path / "wav" / "feat_id.wav")
+    trace_dir = tmp_path / "trace"
+    qpnet_decode.main(argv(expdir, out, "--batch_size", "2", "--mode",
+                           "argmax", "--trace_dir", str(trace_dir)))
+    (name,) = os.listdir(trace_dir)
+    with open(trace_dir / name) as f:
+        events = json.load(f)["traceEvents"]
+    calls = [e for e in events if e.get("cat") == "qpnet_span"
+             and e["name"] == "decode.call"]
+    assert sorted(e["args"]["B"] for e in calls) == [1, 2]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    assert sorted(read_wavs(out, expdir["feats"])) == ["utt0", "utt1",
+                                                       "utt2"]
+
+
 def test_cli_host_striding_with_f0_factor(expdir, tmp_path):
     """--n_hosts/--host_id decode disjoint strided shards; in argmax mode
     their union is the single-host output, bit for bit."""

@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: the validation CLI (losses, and one
 `validation_result.yml` extended by both packages in turn), reference-
-checkpoint conversion, the serving soak on the CPU, the profiler helpers and
-the kernel build cache's key."""
+checkpoint conversion, the serving soak on the CPU and the kernel build
+cache's key."""
 
 import json
 import os
@@ -30,7 +30,6 @@ from qpnet_tpu_torch.tools import convert_checkpoint
 from qpnet_tpu_torch.train import load_checkpoint
 from qpnet_tpu_torch.utils.yamlconf import (read_validation_record,
                                             write_validation_record)
-from qpnet_tpu_torch.utils import profiler
 from test_convert import make_state_dict
 
 FS, UP, N_AUX = 1000, 10, 4
@@ -260,28 +259,6 @@ def test_serve_soak_on_the_cpu():
     assert out["prewarmed_buckets"] == [1, 2, 4]
     assert not out["errors"] and out["completions"] > 0, out
     assert out["ok"], out
-
-
-def test_profiler_helpers(tmp_path):
-    timer = profiler.StepTimer(total_steps=6, interval=3, name="t")
-    for _ in range(6):
-        with timer:
-            pass
-    assert len(timer.history) == 2
-    stats = profiler.device_memory_stats()
-    assert isinstance(stats, dict) and len(stats) >= 1
-    want = {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
-    for v in stats.values():
-        assert isinstance(v, dict) and (not v or set(v) == want)
-    if not torch.cuda.is_available():
-        assert stats == {"cpu": {}}
-    with profiler.trace(str(tmp_path / "tr")):
-        with profiler.annotate("span"):
-            torch.ones(4).sum()
-    (trace,) = os.listdir(tmp_path / "tr")
-    with open(tmp_path / "tr" / trace) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "span" for e in events)
 
 
 def test_build_cache_key_and_directory(monkeypatch, tmp_path):
