@@ -137,6 +137,16 @@ def _kernel_state(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
     return bufF0.contiguous(), bufA0.contiguous(), x0.contiguous()
 
 
+def _roll_rings(buf: torch.Tensor, sizes: Sequence[int],
+                shift: int) -> torch.Tensor:
+    """Rings in the kernel's layout (sum(sizes), B, C), primed for a first
+    step at time 0, moved to a first step at time `shift`: each layer's
+    slots rolled by shift mod its size, so that time tau stays in slot tau
+    mod size (`_prime_ring_buffers`' t0)."""
+    return torch.cat([torch.roll(seg, shift % s, 0)
+                      for seg, s in zip(torch.split(buf, list(sizes)), sizes)])
+
+
 def _prologue(params: Params, cfg: ModelConfig, x_seed: torch.Tensor,
               h_pad0: torch.Tensor, maxd: int, const_seed: bool,
               quantize: str = "none"):
@@ -668,7 +678,9 @@ class StreamingGenerator:
     calls; ring slots, the upsampler phase and the sampling hash key off
     the absolute sample index, so feeds of any whole-frame lengths continue
     exactly.  The rings are primed from a mid-scale seed history and the
-    group's first frame, at the first feed after construction or `reset`.
+    group's first frame, at the first feed after construction or `reset`;
+    `prime_rows` starts streams in rows of a running session at its step,
+    and `move_rows` hands rows to a session of another B.
     The session runs at its own batch B on `device` (CUDA by default; a
     CPU device runs the kernel's plain twin).  The nominal chunk is
     `min_chunk_samples` rounded up to whole frames.  quantize "w8a8" runs
@@ -707,16 +719,68 @@ class StreamingGenerator:
         self._state = None
         self._offset = 0
 
-    def _prime(self, h_first_frame: np.ndarray) -> None:
-        """Rings for a constant mid-scale seed history (the recipe's decode
-        seed) and the group's first frame of aux, f32 (B, n_aux)."""
+    def _primed(self, h_first_frame: np.ndarray):
+        """The kernel state (bufF0, bufA0, x0) for a first step at time 0:
+        rings for a constant mid-scale seed history (the recipe's decode
+        seed) and each row's first frame of aux, f32 (B, n_aux)."""
         rf = self.cfg.receptive_field(self.maxd) + 1
         x_seed = torch.full((self.B, rf), self.cfg.n_quantize // 2,
                             dtype=torch.int64, device=self.device)
         h0 = torch.as_tensor(h_first_frame, dtype=torch.float32,
                              device=self.device)
-        self._state = _kernel_state(self._params, self.cfg, x_seed, h0,
-                                    self.maxd, const_seed=True)
+        return _kernel_state(self._params, self.cfg, x_seed, h0, self.maxd,
+                             const_seed=True)
+
+    def prime_rows(self, rows: Sequence[int],
+                   h_first_frames: np.ndarray) -> None:
+        """Start new streams in `rows` of a running session at its current
+        step: each row gets the state that a fresh session's first feed
+        gives it (`_primed`, run at this session's B, so that its products
+        round as a fresh session's do), with each layer's ring rolled to the
+        current step.  h_first_frames: (len(rows), n_aux), each stream's
+        first frame of aux.  The step is a whole frame, so the upsampler's
+        phase needs nothing.  Span: gen.prime."""
+        if self._state is None:
+            raise RuntimeError("prime_rows starts rows of a running session; "
+                               "a fresh session primes at its first feed")
+        cfg = self.cfg
+        h0 = np.zeros((self.B, cfg.n_aux), np.float32)
+        h0[list(rows)] = h_first_frames
+        idx = torch.as_tensor(list(rows), dtype=torch.long,
+                              device=self.device)
+        sizesA = [self.maxd * d + 1 for d in cfg.dilationsA]
+        with profiler.span("gen.prime"):
+            bufF, bufA, x0 = (t.index_select(1, idx)
+                              for t in self._primed(h0))
+            new = (_roll_rings(bufF, cfg.dilationsF, self._offset),
+                   _roll_rings(bufA, sizesA, self._offset), x0)
+            for dst, src in zip(self._state, new):
+                dst[:, idx] = src
+
+    def move_rows(self, target: "StreamingGenerator",
+                  rows: Sequence[int]) -> None:
+        """Hand the streams in `rows` of this running session to `target`, a
+        session of the same model, maxd and mode at another B, as its rows
+        0..len(rows)-1 in order: their rings and last two samples are
+        copied, and target takes this session's step and seed, so that
+        each stream goes on at the same steps (its sampling keyed off its
+        new row).  The target's other rows start from zero state, as
+        padding; this session is reset."""
+        if self._state is None:
+            raise RuntimeError("move_rows needs a running session")
+        if len(rows) > target.B:
+            raise ValueError(f"{len(rows)} rows do not fit a session of "
+                             f"B={target.B}")
+        idx = torch.as_tensor(list(rows), dtype=torch.long,
+                              device=self.device)
+        state = []
+        for t in self._state:
+            moved = t.new_zeros((t.shape[0], target.B) + tuple(t.shape[2:]))
+            moved[:, :len(rows)] = t.index_select(1, idx)
+            state.append(moved)
+        target._state = tuple(state)
+        target._offset, target.seed = self._offset, self.seed
+        self.reset()
 
     def feed(self, h_frames: np.ndarray, d_frames: np.ndarray) -> np.ndarray:
         """h_frames: (B, F, n_aux) standardized aux; d_frames: (B, F)
@@ -744,7 +808,7 @@ class StreamingGenerator:
         d_pad = np.moveaxis(d_frames, 0, 1)[:, None, :].copy()
         if self._state is None:
             with profiler.span("gen.prime"):
-                self._prime(h_frames[:, 0])
+                self._state = self._primed(h_frames[:, 0])
         with profiler.span("gen.upload"):
             h_dev = torch.from_numpy(h_pad).to(self.device, torch.bfloat16)
             d_dev = torch.from_numpy(d_pad).to(self.device)

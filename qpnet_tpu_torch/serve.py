@@ -5,13 +5,17 @@ ported from `qpnet_tpu/serve.py`.
     (frame-rate aux features and dilation factors, the contract of
     `bin/qpnet_decode`) and returns a `StreamHandle` whose `chunks()`
     iterator yields mu-law sample chunks as the card generates them;
-  * a scheduler thread per device gathers co-batchable requests —
-    dispatching as soon as arrivals go quiet (`gather_quiet_s`), the group
-    is full, or the oldest request has waited `gather_window_s` — groups up
-    to `max_streams` of them, pads the group's batch to a power of two (so
-    each device keeps O(log max_streams) sessions), and streams the whole
-    group through one `StreamingGenerator` session; conditioning shorter
-    than the group's longest is padded by repeating its last frame and each
+  * a scheduler thread per device keeps one running session: an idle
+    device gathers co-batchable requests — dispatching as soon as arrivals
+    go quiet (`gather_quiet_s`), the group is full, or the oldest request
+    has waited `gather_window_s` — and starts a `StreamingGenerator`
+    session of the group's power-of-two bucket (so each device keeps
+    O(log max_streams) sessions); at each feed boundary of a running
+    session the rows whose stream is complete or cancelled are freed, and
+    every pending request joins in a free row, up to `max_streams` rows,
+    primed at the session's step; the rows move to another bucket where
+    their count needs one.  Each row feeds its own stream from its own
+    frame, padded past its end by repeating its last frame, and each
     stream's output is trimmed to its own length;
   * `serve_tcp()` exposes the service over a length-prefixed TCP protocol
     (one connection per utterance, int16 PCM chunks back), byte for byte
@@ -21,10 +25,14 @@ The synthesis is `StreamingGenerator`'s: on a CUDA device, the generation
 kernel (bf16 or w8a8); on a CPU device, its plain twin.
 
 Spans (`utils.profiler`), those of one stream tagged with its handle's
-`rid`: serve.queue from `submit` to its group and a serve.write a chunk on
-its connection's thread; the scheduler's serve.gather (its idle device
-holding a request), and serve.group with serve.session_build and a
-serve.feed a feed.
+`rid`: serve.queue from `submit` to its cohort (`joined`: into a running
+session) and a serve.write a chunk on its connection's thread; the
+scheduler's serve.gather (its idle device holding a request, or a take at
+a boundary), a serve.group a cohort (the streams that enter at one
+dispatch or one boundary, to the end of the last of them) with
+serve.session_build, and a serve.feed a feed.  Counters: serve.joined
+(streams that joined a running session), serve.bucket_moves,
+serve.session_builds.
 """
 
 from __future__ import annotations
@@ -66,10 +74,10 @@ class StreamHandle:
 
     def cancel(self):
         """Abandon the stream (e.g. the client disconnected).  The scheduler
-        stops emitting chunks for it, and once every stream in its group is
-        cancelled or complete the group's kernel loop stops early.  Safe
-        from any thread, idempotent, and valid at any stage (pending
-        requests are dropped before they are grouped)."""
+        stops emitting chunks for it and frees its row at the next feed
+        boundary; once no row is live and none is pending, the session's
+        kernel loop stops.  Safe from any thread, idempotent, and valid at
+        any stage (pending requests are dropped before they are grouped)."""
         self._cancelled.set()
         self._q.put(None)                            # unblock a reader
 
@@ -96,13 +104,15 @@ class _Request:
         self.handle = StreamHandle(self.h.shape[0] * up, rid)
         self.queued: Optional[profiler.Open] = None  # span serve.queue
         self.t_arrival = 0.0                        # perf_counter seconds
+        self.frame = 0                              # frames fed so far
+        self.cohort: Optional["_Cohort"] = None     # while it streams
 
 
 class StreamingService:
     """Batched streaming synthesis over one model.
 
-    max_streams: largest group one session serves.  gather_window_s: the
-    cap on how long any request waits for co-batchable traffic; an idle
+    max_streams: most streams (rows) one session serves.  gather_window_s:
+    the cap on how long any request waits for co-batchable traffic; an idle
     device dispatches once arrivals stop for gather_quiet_s (default
     window / 10).  maxd: dilation-factor bucket of the sessions; submit()
     rejects conditioning above it.  devices: torch devices to spread groups
@@ -245,6 +255,26 @@ class StreamingService:
 
     # ---- scheduler ----
 
+    def _take(self, room: int, joined: bool) -> Tuple[int, List[_Request]]:
+        """Under `_cv`: drop the cancelled pending requests and take up to
+        `room` of the rest, oldest first, as one cohort: (group index,
+        requests).  Their serve.queue spans end with the index and whether
+        they join a running session."""
+        # requests cancelled while queued never reach a kernel
+        live = [r for r in self._pending if not r.handle.cancelled]
+        for r in self._pending:
+            if r.handle.cancelled:
+                profiler.end(r.queued, cancelled=True)
+        self.stats["streams_cancelled"] += len(self._pending) - len(live)
+        group = live[:room]
+        self._pending = live[len(group):]
+        gidx = self._groups
+        if group:
+            self._groups += 1
+        for r in group:
+            profiler.end(r.queued, group=gidx, joined=joined)
+        return gidx, group
+
     def _take_group(self) -> Optional[Tuple[int, List[_Request]]]:
         """(group index, requests), or None once closed and drained.  The
         span serve.gather is the time this idle device held a pending
@@ -273,25 +303,12 @@ class StreamingService:
                 if deadline <= now:
                     break
                 self._cv.wait(deadline - now)
-            # requests cancelled while queued never reach a kernel
-            live = [r for r in self._pending if not r.handle.cancelled]
-            for r in self._pending:
-                if r.handle.cancelled:
-                    profiler.end(r.queued, cancelled=True)
-            self.stats["streams_cancelled"] += (len(self._pending)
-                                                - len(live))
-            self._pending = live
-            group = self._pending[: self.max_streams]
-            del self._pending[: len(group)]
-            gidx = self._groups
-            if group:
-                self._groups += 1
-            for r in group:
-                profiler.end(r.queued, group=gidx)
+            gidx, group = self._take(self.max_streams, joined=False)
             profiler.end(gather, group=gidx, streams=len(group))
             return gidx, group
 
     def _scheduler(self, device, sessions):
+        run = _Running(sessions, device)
         while True:
             taken = self._take_group()
             if taken is None:
@@ -300,91 +317,205 @@ class StreamingService:
             if not group:                            # all arrivals cancelled
                 continue
             try:
-                self._run_group(group, sessions, device, gidx)
+                self._run_group(group, run, gidx)
+                self._stream(run)
             except Exception as e:  # noqa: BLE001 — report to all clients
-                logging.exception("stream group failed")
-                for req in group:
-                    req.handle.error = e
-                    req.handle._q.put(None)
+                logging.exception("stream session failed")
+                for c in run.cohorts:
+                    for req in c.reqs:
+                        if req.cohort is not None:   # not ended yet
+                            req.handle.error = e
+                            req.handle._q.put(None)
+                    profiler.end(c.span, error=True)
+                run.clear()
 
-    def _run_group(self, group: List[_Request], sessions, device,
-                   gidx: int):
-        """Stream the group through its bucket's session: the span
-        serve.group, with a serve.feed a feed."""
-        B_real = len(group)
-        B = 1 << (B_real - 1).bit_length()          # power-of-two bucket
-        with profiler.span("serve.group", group=gidx, streams=B_real,
-                           bucket=B, built=B not in sessions):
-            cfg = self.cfg
-            up = cfg.upsampling_factor
-            sess = sessions.get(B)
-            if sess is None:
-                # prewarm() missed this bucket: the group waits for the build
-                profiler.count("serve.session_builds")
-                with profiler.span("serve.session_build", bucket=B):
-                    sess = self._make_session(B, device)
-                sessions[B] = sess
+    def _bucket(self, run: "_Running", n: int) -> int:
+        """The session bucket for n rows: the power of two at or above n.
+        A running session moves down only to a bucket that is built
+        already: building one would stall every live row to save a few
+        microseconds a step."""
+        B = 1 << (n - 1).bit_length()
+        if run.gen is not None and B < run.gen.B and B not in run.gens:
+            return run.gen.B
+        return B
+
+    def _session(self, run: "_Running", B: int,
+                 parent) -> StreamingGenerator:
+        """The device's session of bucket B, built (the span
+        serve.session_build, under `parent`) where prewarm() missed it."""
+        sess = run.gens.get(B)
+        if sess is None:
+            profiler.count("serve.session_builds")
+            with profiler.span("serve.session_build", parent=parent,
+                               bucket=B):
+                sess = self._make_session(B, run.device)
+            run.gens[B] = sess
+        return sess
+
+    def _move(self, run: "_Running", B: int, parent) -> None:
+        """Move the live rows to the session of bucket B, compacted to its
+        first rows in their order."""
+        target = self._session(run, B, parent)
+        keep = [i for i, r in enumerate(run.rows) if r is not None]
+        run.gen.move_rows(target, keep)
+        run.rows = [run.rows[i] for i in keep] + [None] * (B - len(keep))
+        run.gen = target
+        profiler.count("serve.bucket_moves")
+
+    def _run_group(self, group: List[_Request], run: "_Running", gidx: int):
+        """Bring a cohort into the device's session: a fresh session of its
+        bucket (seed + gidx) on an idle device, else the running session at
+        this feed boundary, in free rows, moving the rows to another bucket
+        where the live rows and the cohort need one.  The span serve.group
+        runs from here to the end of the cohort's last stream; new rows of
+        a running session are primed at the next feed."""
+        n = len(run.live()) + len(group)
+        B = self._bucket(run, n)
+        cohort = _Cohort(group, profiler.begin(
+            "serve.group", group=gidx, streams=len(group), bucket=B,
+            built=B not in run.gens))
+        run.cohorts.append(cohort)
+        with self._cv:
+            self.stats["groups"] += 1
+        if run.gen is None:
+            run.gen = self._session(run, B, cohort.span)
             # the packed weights stay; fresh rings and a seed of its own
-            sess.reset(seed=self.seed + gidx)
-            Fc = sess.chunk_frames
-            F_max = max(r.h.shape[0] for r in group)
-            # an optional short first chunk, then nominal chunks
-            schedule = []
+            run.gen.reset(seed=self.seed + gidx)
+            run.rows = list(group) + [None] * (B - len(group))
             if self.first_chunk_samples > 0:
-                schedule.append(min(F_max, max(1, -(-self.first_chunk_samples
-                                                   // up))))
-            start = sum(schedule)
-            while start < F_max:
-                schedule.append(Fc)
-                start += Fc
-            done = [0] * B_real                      # samples emitted so far
-            start = 0
-            with self._cv:
-                self.stats["groups"] += 1
-            for k, L in enumerate(schedule):
-                # once every stream is complete or cancelled, the rest of the
-                # schedule is padding: stop and hand the device back
-                if all(r.handle.cancelled or done[i] >= r.handle.n_samples
-                       for i, r in enumerate(group)):
-                    break
-                with profiler.span("serve.feed", index=k, frames=L):
-                    out = sess.feed(*self._block(group, B, L, start))
-                start += L
-                with self._cv:
-                    self.stats["feeds"] += 1
-                for i, r in enumerate(group):
-                    if r.handle.cancelled:
-                        continue
-                    take = min(r.handle.n_samples - done[i], out.shape[1])
-                    if take > 0:
-                        r.handle._q.put(out[i, :take].copy())
-                        done[i] += take
-            with self._cv:
-                for i, r in enumerate(group):
-                    if r.handle.cancelled:
-                        self.stats["streams_cancelled"] += 1
-                    else:
-                        self.stats["streams_done"] += 1
-            for r in group:
-                r.handle._q.put(None)
+                # a short first chunk (whole frames) brings the first audio
+                # forward
+                run.first = min(max(r.h.shape[0] for r in group),
+                                max(1, -(-self.first_chunk_samples
+                                         // self.cfg.upsampling_factor)))
+            return
+        profiler.count("serve.joined", len(group))
+        if B != run.gen.B:
+            self._move(run, B, cohort.span)
+        free = [i for i, r in enumerate(run.rows) if r is None]
+        for i, r in zip(free, group):
+            run.rows[i] = r
+            run.unprimed.append(i)
 
-    def _block(self, group: List[_Request], B: int, L: int, start: int):
-        """A feed's (h (B, L, n_aux), d (B, L)) from frame `start` of each
-        stream: repeat-last padding past a stream's end, rows past the
-        group's streams zero."""
+    def _stream(self, run: "_Running"):
+        """Feed the device's session until no row is live and no request is
+        pending.  Each feed runs nominal chunks (a fresh session's first
+        one may be short) from each row's own frame; at each boundary the
+        rows whose stream is complete or cancelled are freed, and the
+        pending requests join (`_run_group`) up to max_streams rows.  The
+        span serve.feed a feed, under the newest cohort still streaming
+        (index: that cohort's feeds before it)."""
+        up = self.cfg.upsampling_factor
+        while True:
+            L, run.first = run.first or run.gen.chunk_frames, None
+            cohort = run.cohorts[-1]
+            with profiler.span("serve.feed", parent=cohort.span,
+                               index=cohort.feeds, frames=L):
+                if run.unprimed:
+                    run.gen.prime_rows(run.unprimed, np.stack(
+                        [run.rows[i].h[0] for i in run.unprimed]))
+                    run.unprimed = []
+                out = run.gen.feed(*self._block(run.rows, L))
+            cohort.feeds += 1
+            for i, r in enumerate(run.rows):
+                if r is None:
+                    continue
+                take = min(r.h.shape[0] - r.frame, L) * up
+                if not r.handle.cancelled:
+                    r.handle._q.put(out[i, :take].copy())
+                r.frame += L
+            ended = []
+            with self._cv:
+                self.stats["feeds"] += 1
+                for i, r in enumerate(run.rows):
+                    if r is not None and (r.handle.cancelled
+                                          or r.frame >= r.h.shape[0]):
+                        self.stats["streams_cancelled" if r.handle.cancelled
+                                   else "streams_done"] += 1
+                        run.rows[i] = None
+                        ended.append(r)
+                room = self.max_streams - len(run.live())
+                joined = []
+                if room > 0 and self._pending:
+                    gather = profiler.begin("serve.gather")
+                    gidx, joined = self._take(room, joined=True)
+                    if joined:
+                        profiler.end(gather, group=gidx,
+                                     streams=len(joined))
+            for r in ended:
+                r.handle._q.put(None)
+                run.end(r)
+            if joined:
+                self._run_group(joined, run, gidx)
+                continue
+            if not run.live():
+                run.clear()
+                return
+            B = self._bucket(run, len(run.live()))
+            if B != run.gen.B:
+                self._move(run, B, run.cohorts[-1].span)
+
+    def _block(self, rows: List[Optional[_Request]], L: int):
+        """A feed's (h (B, L, n_aux), d (B, L)): L frames of each row's
+        stream from its own frame, repeat-last padding past the stream's
+        end, free rows zero."""
+        B = len(rows)
         h_blk = np.zeros((B, L, self.cfg.n_aux), np.float32)
         d_blk = np.ones((B, L), np.float32)
-        for i, r in enumerate(group):
-            sl = r.h[start: start + L]
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            sl = r.h[r.frame: r.frame + L]
             h_blk[i, : len(sl)] = sl
-            d_blk[i, : len(sl)] = r.d[start: start + L]
-            if 0 < len(sl) < L:
-                h_blk[i, len(sl):] = sl[-1]          # repeat-last padding
-                d_blk[i, len(sl):] = r.d[start + len(sl) - 1]
-            elif len(sl) == 0:                       # stream already done
-                h_blk[i] = r.h[-1]
-                d_blk[i] = r.d[-1]
+            d_blk[i, : len(sl)] = r.d[r.frame: r.frame + L]
+            h_blk[i, len(sl):] = sl[-1]              # repeat-last padding
+            d_blk[i, len(sl):] = r.d[r.frame + len(sl) - 1]
         return h_blk, d_blk
+
+
+class _Cohort:
+    """The streams that enter a session at one dispatch or one feed
+    boundary, and their span serve.group."""
+
+    def __init__(self, reqs: List[_Request], span: profiler.Open):
+        self.reqs, self.span = reqs, span
+        self.left = len(reqs)                       # streams still running
+        self.feeds = 0                              # feeds it parents
+        for r in reqs:
+            r.cohort = self
+
+
+class _Running:
+    """A device's running session: the StreamingGenerator of its bucket
+    (`gens`: the device's sessions, bucket -> generator), a request or None
+    a row, the cohorts still streaming (oldest first), the rows to prime
+    before the next feed and a fresh session's short first chunk."""
+
+    def __init__(self, gens: dict, device):
+        self.gens, self.device = gens, device
+        self.gen: Optional[StreamingGenerator] = None
+        self.rows: List[Optional[_Request]] = []
+        self.cohorts: List[_Cohort] = []
+        self.unprimed: List[int] = []
+        self.first: Optional[int] = None
+
+    def live(self) -> List[_Request]:
+        return [r for r in self.rows if r is not None]
+
+    def end(self, req: _Request) -> None:
+        """A stream has ended: its cohort's span ends with its last."""
+        c, req.cohort = req.cohort, None
+        c.left -= 1
+        if c.left == 0:
+            profiler.end(c.span)
+            self.cohorts.remove(c)
+
+    def clear(self) -> None:
+        """The device is idle again: the session drops its state."""
+        if self.gen is not None:
+            self.gen.reset()
+        self.gen, self.rows, self.cohorts, self.unprimed = None, [], [], []
+        self.first = None
 
 
 # ---------------------------------------------------------------------------

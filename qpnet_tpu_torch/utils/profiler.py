@@ -1,11 +1,12 @@
 """The port's tracing: spans and counters recorded inside the program, and a
 torch.profiler trace that shows them beside the card's kernels.
 
-  * `span(name, rid=None, **attrs)` times a block (a context manager);
-    `begin(...)` / `end(...)` time a span that starts on one thread and ends
-    on another.  A span's parent is the innermost `span` block open on its
-    thread when it began; the spans of one request share a `rid`
-    (`new_rid()`), whatever thread records them;
+  * `span(name, rid=None, parent=None, **attrs)` times a block (a context
+    manager); `begin(...)` / `end(...)` time a span that starts on one
+    thread and ends on another.  A span's parent is `parent` where given
+    (an open span), else the innermost `span` block open on its thread
+    when it began; the spans of one request share a `rid` (`new_rid()`),
+    whatever thread records them;
   * `count(name, n=1)` adds to a process-wide counter;
   * `spans()` and `counters()` read them; `clear()` and `reset_counters()`
     empty them;
@@ -62,11 +63,14 @@ class Open:
     __slots__ = ("name", "t0_ns", "span_id", "parent_id", "rid", "attrs",
                  "done")
 
-    def __init__(self, name: str, rid, attrs: dict):
+    def __init__(self, name: str, rid, attrs: dict,
+                 parent: "Open" = None):
         stack = _thread().stack
         self.name, self.rid, self.attrs = name, rid, attrs
         self.span_id = next(_ids)
-        self.parent_id = stack[-1].span_id if stack else None
+        if parent is None and stack:
+            parent = stack[-1]
+        self.parent_id = None if parent is None else parent.span_id
         self.done = False
         self.t0_ns = time.perf_counter_ns()
 
@@ -80,15 +84,15 @@ class Open:
         return False
 
 
-def span(name: str, rid=None, **attrs) -> Open:
+def span(name: str, rid=None, parent: Open = None, **attrs) -> Open:
     """`with span(...) as s:` records the block; `s.attrs` may be filled
     in inside it."""
-    return Open(name, rid, attrs)
+    return Open(name, rid, attrs, parent)
 
 
-def begin(name: str, rid=None, **attrs) -> Open:
+def begin(name: str, rid=None, parent: Open = None, **attrs) -> Open:
     """Start a span that `end` records, on this thread or another."""
-    return Open(name, rid, attrs)
+    return Open(name, rid, attrs, parent)
 
 
 def end(s: Open, **attrs) -> None:

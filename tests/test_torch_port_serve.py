@@ -415,6 +415,306 @@ def test_service_defaults_to_cuda(model):
 
 
 # ---------------------------------------------------------------------------
+# StreamingService: streams join a running session at feed boundaries
+# ---------------------------------------------------------------------------
+
+def stream(rng, cfg, F):
+    return (rng.normal(size=(F, cfg.n_aux)).astype(np.float32),
+            rng.uniform(1.0, 3.5, F).astype(np.float32))
+
+
+def padded(h, d, start, L):
+    """L frames of a stream from `start`, repeat-last padding past its
+    end (the service's block for one row)."""
+    sl = slice(start, start + L)
+    hs, ds = h[sl], d[sl]
+    n = L - len(hs)
+    return (np.concatenate([hs, np.repeat(hs[-1:], n, 0)]),
+            np.concatenate([ds, np.repeat(ds[-1:], n)]))
+
+
+def block(cfg, B, rows, start, L):
+    """A feed of B rows, each of `rows` {row: (h, d)} from `start`, the
+    others zero."""
+    hb = np.zeros((B, L, cfg.n_aux), np.float32)
+    db = np.ones((B, L), np.float32)
+    for i, (h, d) in rows.items():
+        hb[i], db[i] = padded(h, d, start, L)
+    return hb, db
+
+
+def fresh_row(cfg, pt, B, row, h, d, L=8):
+    """A stream from offset 0 in `row` of a fresh session of bucket B, in
+    nominal feeds, trimmed to its length."""
+    sess = session(cfg, pt, B)
+    out = [sess.feed(*block(cfg, B, {row: (h, d)}, s, L))[row]
+           for s in range(0, h.shape[0], L)]
+    return np.concatenate(out)[: h.shape[0] * cfg.upsampling_factor]
+
+
+def hook_feed(sess, at, fn):
+    """Call fn() just before the session's feed number `at` (from 1): the
+    scheduler then finds what fn submits or cancels at the boundary after
+    that feed.  Returns the list of the h blocks the session is fed."""
+    seen, feed = [], sess.feed
+
+    def hooked(h, d):
+        seen.append(np.array(h))
+        if len(seen) == at:
+            fn()
+        return feed(h, d)
+
+    sess.feed = hooked
+    return seen
+
+
+def copy_row(src, dst, row_src, row_dst):
+    """By hand: the state of one row of a running session into a row of
+    another, with its step and seed (zero state where dst has none)."""
+    if dst._state is None:
+        dst._state = tuple(t.new_zeros((t.shape[0], dst.B) + t.shape[2:])
+                           for t in src._state)
+    for s, t in zip(src._state, dst._state):
+        t[:, row_dst] = s[:, row_src]
+    dst._offset, dst.seed = src._offset, src.seed
+
+
+def joined_lone_stream(cfg, pt):
+    """A lone stream A (5 feeds) in a bucket-1 session; C (12 frames) is
+    submitted during A's second feed and joins at the boundary after it,
+    moving A to the bucket-2 session."""
+    from qpnet_tpu_torch.utils import profiler
+    rng = np.random.default_rng(12)
+    (ha, da), (hc, dc) = stream(rng, cfg, 40), stream(rng, cfg, 12)
+    profiler.reset_counters("serve.")
+    svc = make_service(cfg, pt, max_streams=4)
+    try:
+        svc.prewarm([1, 2])
+        got = {}
+        hook_feed(svc._sessions[0][1], 2,
+                  lambda: got.setdefault("C", svc.submit(hc, dc)))
+        a = svc.submit(ha, da).samples()
+        c = got["C"].samples()
+    finally:
+        svc.close()
+    return (ha, da, a), (hc, dc, c), dict(svc.stats), profiler.counters()
+
+
+def test_a_stream_joins_a_running_session_at_a_feed_boundary(model):
+    """C joins at the boundary after A's second feed, primed in row 1 of
+    the bucket-2 session at step 80: its samples equal C from offset 0 in
+    row 1 of a fresh bucket-2 session (the rings rolled to the step), and
+    A's, moved to bucket 2 and back to 1 once C ends, equal A alone."""
+    _, _, cfg, pt = model
+    (ha, da, a), (hc, dc, c), stats, counters = joined_lone_stream(cfg, pt)
+    np.testing.assert_array_equal(c, fresh_row(cfg, pt, 2, 1, hc, dc))
+    np.testing.assert_array_equal(a, fresh_row(cfg, pt, 1, 0, ha, da))
+    assert counters["serve.joined"] == 1
+    assert counters["serve.bucket_moves"] == 2
+    assert stats == {"groups": 2, "feeds": 5, "streams_done": 2,
+                     "streams_cancelled": 0}
+    assert stats["feeds"] < 5 + 2            # the two groups back to back
+
+
+def test_rows_move_up_and_down_between_buckets(model):
+    """A alone in bucket 1; B1 and B2 join after its first feed (3 rows:
+    up to bucket 4); once B1 ends, 2 rows stay in bucket 4 (bucket 2 is not
+    built); once B2 ends, A moves down to bucket 1.  A equals a run built
+    by hand: its state copied row to row between fresh sessions."""
+    from qpnet_tpu_torch.utils import profiler
+    _, _, cfg, pt = model
+    rng = np.random.default_rng(13)
+    (ha, da), (h1, d1), (h2, d2) = (stream(rng, cfg, F) for F in (48, 8, 10))
+    profiler.reset_counters("serve.")
+    svc = make_service(cfg, pt, max_streams=4)
+    try:
+        svc.prewarm([1, 4])
+        got = {}
+        hook_feed(svc._sessions[0][1], 1, lambda: got.update(
+            b1=svc.submit(h1, d1), b2=svc.submit(h2, d2)))
+        a = svc.submit(ha, da).samples()
+        b1, b2 = got["b1"].samples(), got["b2"].samples()
+    finally:
+        svc.close()
+    assert sorted(svc._sessions[0]) == [1, 4]
+    counters = profiler.counters()
+    assert counters["serve.bucket_moves"] == 2
+    assert counters["serve.joined"] == 2
+    assert "serve.session_builds" not in counters
+    assert svc.stats["feeds"] == 6
+    s1, s4, s1b = session(cfg, pt, 1), session(cfg, pt, 4), session(cfg, pt, 1)
+    want = [s1.feed(*block(cfg, 1, {0: (ha, da)}, 0, 8))[0]]
+    copy_row(s1, s4, 0, 0)
+    want += [s4.feed(*block(cfg, 4, {0: (ha, da)}, f, 8))[0]
+             for f in (8, 16)]
+    copy_row(s4, s1b, 0, 0)
+    want += [s1b.feed(*block(cfg, 1, {0: (ha, da)}, f, 8))[0]
+             for f in (24, 32, 40)]
+    np.testing.assert_array_equal(a, np.concatenate(want))
+    np.testing.assert_array_equal(b1, fresh_row(cfg, pt, 4, 1, h1, d1))
+    np.testing.assert_array_equal(b2, fresh_row(cfg, pt, 4, 2, h2, d2))
+
+
+def test_a_cancelled_row_is_freed_and_reused(model):
+    """A and X form one bucket-2 group; X is cancelled during the second
+    feed and C submitted: at the boundary X's row 1 is freed and C takes
+    it, with no bucket move."""
+    from qpnet_tpu_torch.utils import profiler
+    _, _, cfg, pt = model
+    rng = np.random.default_rng(14)
+    (ha, da), (hx, dx), (hc, dc) = (stream(rng, cfg, F)
+                                    for F in (40, 40, 12))
+    profiler.reset_counters("serve.")
+    svc = make_service(cfg, pt, max_streams=2)
+    try:
+        svc.prewarm([2])
+        got = {}
+
+        def cancel_and_submit():
+            got["X"].cancel()
+            got["C"] = svc.submit(hc, dc)
+
+        seen = hook_feed(svc._sessions[0][2], 2, cancel_and_submit)
+        a = svc.submit(ha, da)
+        got["X"] = svc.submit(hx, dx)
+        a = a.samples()
+        c = got["C"].samples()
+        x = list(got["X"].chunks())
+    finally:
+        svc.close()
+    assert x == []
+    np.testing.assert_array_equal(seen[2][1], padded(hc, dc, 0, 8)[0])
+    np.testing.assert_array_equal(seen[4][1], np.zeros((8, cfg.n_aux)))
+    np.testing.assert_array_equal(c, fresh_row(cfg, pt, 2, 1, hc, dc))
+    np.testing.assert_array_equal(a, fresh_row(cfg, pt, 2, 0, ha, da))
+    assert svc.stats == {"groups": 2, "feeds": 5, "streams_done": 2,
+                         "streams_cancelled": 1}
+    assert profiler.counters()["serve.joined"] == 1
+    assert "serve.bucket_moves" not in profiler.counters()
+
+
+def test_each_cohort_has_its_span_tree(model):
+    """The run of the joining test: a serve.group a cohort, its serve.queue
+    ending with its group index and `joined`, its serve.gather, and the
+    serve.feed with index 0 that first carries it under its serve.group."""
+    from qpnet_tpu_torch.utils import profiler
+    _, _, cfg, pt = model
+    profiler.clear()
+    joined_lone_stream(cfg, pt)
+    rec = profiler.spans()
+    groups = sorted((s for s in rec if s.name == "serve.group"),
+                    key=lambda s: s.t0_ns)
+    assert [g.attrs for g in groups] == [
+        {"group": 0, "streams": 1, "bucket": 1, "built": False},
+        {"group": 1, "streams": 1, "bucket": 2, "built": False}]
+    queues = sorted((s for s in rec if s.name == "serve.queue"),
+                    key=lambda s: s.t0_ns)
+    assert [q.attrs for q in queues] == [{"group": 0, "joined": False},
+                                         {"group": 1, "joined": True}]
+    gathers = sorted((s for s in rec if s.name == "serve.gather"),
+                     key=lambda s: s.t0_ns)
+    assert [s.attrs for s in gathers] == [{"group": 0, "streams": 1},
+                                          {"group": 1, "streams": 1}]
+    feeds = [s for s in rec if s.name == "serve.feed"]
+    assert len(feeds) == 5
+    for g, q in zip(groups, queues):
+        (first,) = [f for f in feeds if f.parent_id == g.span_id
+                    and f.attrs["index"] == 0]
+        assert q.t1_ns <= g.t0_ns <= first.t0_ns
+        assert first.t1_ns <= g.t1_ns
+        names = {s.name for s in rec if s.parent_id == first.span_id}
+        assert "gen.prime" in names and "k1.generate" in names
+    # C's cohort starts in the middle of A's: spans of cohorts overlap
+    assert groups[0].t0_ns < groups[1].t0_ns < groups[1].t1_ns \
+        <= groups[0].t1_ns
+    profiler.clear()
+
+
+def test_staggered_streams_over_two_devices_each_equal_a_lone_run(model):
+    """Four clients send four streams each, at staggered times, to two
+    scheduler threads that share the queue and join streams into their
+    running sessions (thread switches forced often): each stream equals
+    its lone run, and the counters add up."""
+    import sys
+    from qpnet_tpu_torch.utils import profiler
+    _, _, cfg, pt = model
+    rng = np.random.default_rng(15)
+    streams = [stream(rng, cfg, int(F)) for F in rng.integers(3, 20, 16)]
+    waits = rng.uniform(0.0, 0.05, 16)
+    want = [fresh_row(cfg, pt, 1, 0, h, d) for h, d in streams]
+    profiler.reset_counters("serve.")
+    svc = make_service(cfg, pt, max_streams=3, devices=["cpu", "cpu"],
+                       gather_window_s=0.02)
+    got = [None] * 16
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        svc.prewarm([1, 2, 4])
+
+        def client(c):
+            for k in range(c, 16, 4):
+                time.sleep(waits[k])
+                got[k] = svc.submit(*streams[k]).samples()
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        svc.close()
+    for k in range(16):
+        np.testing.assert_array_equal(got[k], want[k])
+    assert svc.stats["streams_done"] == 16
+    assert svc.stats["streams_cancelled"] == 0
+    # a cohort a dispatch or a boundary, each of one stream at least
+    assert svc.stats["groups"] <= 16
+    assert profiler.counters().get("serve.joined", 0) < 16
+
+
+@pytest.mark.parametrize("offset", [0, 7, 80, 1234])
+def test_rings_rolled_to_a_step_equal_rings_primed_there(model, offset):
+    """`_roll_rings` moves rings primed for step 0 to step `offset` as
+    `_prime_ring_buffers` primes them for a first step at t0 = offset, on a
+    history that is not constant (where the roll is no identity)."""
+    import torch
+    _, _, cfg, pt = model
+    B = 2
+    rf = cfg.receptive_field(MAXD)
+    g = torch.Generator().manual_seed(offset)
+    x_seed = torch.randint(0, cfg.n_quantize, (B, rf + 1), generator=g)
+    h0_up = torch.randn((B, cfg.n_aux), generator=g)
+
+    def primed(t0):
+        bufsF, bufsA = TG._prime_ring_buffers(pt, cfg, x_seed, h0_up, MAXD,
+                                              t0=t0)
+        return (torch.cat([b.transpose(0, 1) for b in bufsF]),
+                torch.cat([b.transpose(0, 1) for b in bufsA]))
+
+    (f0, a0), (fo, ao) = primed(0), primed(offset)
+    sizesA = [MAXD * d + 1 for d in cfg.dilationsA]
+    assert torch.equal(TG._roll_rings(f0, cfg.dilationsF, offset), fo)
+    assert torch.equal(TG._roll_rings(a0, sizesA, offset), ao)
+    if offset:
+        assert not torch.equal(a0, ao)
+
+
+def test_prime_and_move_rows_need_a_running_session(model):
+    _, _, cfg, pt = model
+    sess = session(cfg, pt, 2)
+    with pytest.raises(RuntimeError, match="running session"):
+        sess.prime_rows([0], np.zeros((1, cfg.n_aux), np.float32))
+    with pytest.raises(RuntimeError, match="running session"):
+        sess.move_rows(session(cfg, pt, 1), [0])
+    sess.feed(np.zeros((2, 1, cfg.n_aux)), np.ones((2, 1)))
+    with pytest.raises(ValueError, match="do not fit"):
+        sess.move_rows(session(cfg, pt, 1), [0, 1])
+
+
+# ---------------------------------------------------------------------------
 # the wire protocol, across packages
 # ---------------------------------------------------------------------------
 

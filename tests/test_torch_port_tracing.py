@@ -77,6 +77,23 @@ def test_spans_nest_on_their_thread_and_begin_names_no_child():
     assert rec["leaf"].t1_ns <= rec["inner"].t1_ns <= rec["outer"].t1_ns
 
 
+def test_a_span_given_its_parent_takes_it_over_the_open_block():
+    loose = profiler.begin("loose")
+    with profiler.span("outer") as outer:
+        with profiler.span("adopted", parent=loose) as adopted:
+            with profiler.span("leaf"):
+                pass
+        late = profiler.begin("late", parent=loose, k=2)
+    profiler.end(late)
+    profiler.end(loose)
+    rec = {s.name: s for s in profiler.spans()}
+    assert rec["adopted"].parent_id == loose.span_id
+    assert rec["leaf"].parent_id == adopted.span_id
+    assert rec["late"].parent_id == loose.span_id
+    assert rec["late"].attrs == {"k": 2}
+    assert rec["outer"].parent_id is None and outer.span_id != loose.span_id
+
+
 def test_a_request_id_joins_spans_across_threads():
     rid = profiler.new_rid()
     queued = profiler.begin("queue", rid=rid)
@@ -253,7 +270,8 @@ def test_service_spans_form_each_requests_tree(tiny):
     n_writes = []
     for queue in queues:
         mine = [s for s in rec if s.rid == queue.rid]
-        assert queue.attrs == {"group": 0} and queue.parent_id is None
+        assert queue.attrs == {"group": 0, "joined": False} and \
+            queue.parent_id is None
         assert queue.t1_ns <= feeds[0].t0_ns
         writes = sorted(by_name(mine, "serve.write"), key=lambda s: s.t0_ns)
         n_writes.append(len(writes))
